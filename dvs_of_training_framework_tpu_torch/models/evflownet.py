@@ -1,0 +1,282 @@
+"""EVFlowNet: a learnable event representation and a conv UNet with four
+flow heads.
+
+Counterpart of ``EVFlowNet/net.py`` (``DenseParams``,
+``QuantizationLayer``, ``ResBlock``, ``Predictor``, ``Model``), in NCHW.
+The voxel grid's channel index is ``l * C + c`` for element ``l`` and
+temporal channel ``c``, the order of the JAX model's ``[B, H, W, L*C]``.
+Parameter names follow the flax tree (``predictor.enc0.weight``,
+``quantization_layer.kernel_hidden1.kernel``, ...) so that
+``utils/convert.py`` maps one onto the other name by name.  Convolutions
+use flax's ``'SAME'`` padding and every initialiser follows flax: a
+truncated-normal ``lecun_normal`` (variance 1/fan_in), normal(1e-2) for
+``kernel_out``, normal(1e-3) for the flow heads, zero biases.
+
+On CUDA the quantization layer runs the K2 kernel-MLP and the K1 voxelize
+kernels; ``plain_ops=True`` runs their plain PyTorch twins instead, as the
+reference path that a kernel run is compared with.
+"""
+import math
+from typing import Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops import kernel_mlp_cuda, voxel_cuda
+from ..ops.segment import segment_starts
+
+# standard deviation of a standard normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+def lecun_normal_(tensor, fan_in, generator):
+    """flax ``lecun_normal``: truncated normal with variance 1/fan_in."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
+    return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def upsample2x_nearest(x):
+    """Exact 2x nearest-neighbour upsample of ``[B, C, H, W]``."""
+    B, C, H, W = x.shape
+    x = x[:, :, :, None, :, None].expand(B, C, H, 2, W, 2)
+    return x.reshape(B, C, 2 * H, 2 * W)
+
+
+def _same_pads(size, kernel, stride):
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class DenseParams(nn.Module):
+    """The weights of one dense layer, kept in flax's ``[in, out]``
+    layout (the K2 kernel reads that layout); the caller does the math."""
+
+    def __init__(self, features_in, features_out, generator, std=None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(features_in, features_out))
+        self.bias = nn.Parameter(torch.zeros(features_out))
+        with torch.no_grad():
+            if std is None:
+                lecun_normal_(self.kernel, features_in, generator)
+            else:
+                nn.init.normal_(self.kernel, 0.0, std, generator=generator)
+
+    def forward(self):
+        return self.kernel, self.bias
+
+
+class Conv(nn.Module):
+    """2-D convolution with flax ``nn.Conv``'s 'SAME' padding and init.
+
+    On an even input a stride-2 3x3 convolution pads (0, 1), not (1, 1).
+    """
+
+    def __init__(self, features_in, features_out, kernel_size, generator,
+                 stride=1, std=None):
+        super().__init__()
+        k = kernel_size
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(features_out, features_in,
+                                               k, k))
+        self.bias = nn.Parameter(torch.zeros(features_out))
+        with torch.no_grad():
+            if std is None:
+                lecun_normal_(self.weight, features_in * k * k, generator)
+            else:
+                nn.init.normal_(self.weight, 0.0, std, generator=generator)
+
+    def forward(self, x):
+        k = self.weight.shape[-1]
+        top, bottom = _same_pads(x.shape[-2], k, self.stride)
+        left, right = _same_pads(x.shape[-1], k, self.stride)
+        if top == bottom and left == right:
+            return F.conv2d(x, self.weight, self.bias, self.stride,
+                            padding=(top, left))
+        x = F.pad(x, (left, right, top, bottom))
+        return F.conv2d(x, self.weight, self.bias, self.stride)
+
+
+class QuantizationLayer(nn.Module):
+    """Learnable event -> voxel-grid representation.
+
+    Each event adds ``(tri(delta_c) + mlp(delta_c)) * polarity`` to channel
+    ``c`` at its pixel, where ``delta_c = t_norm - c / (C - 1)`` and
+    ``t_norm`` places the event in its element's frame window.  Returns
+    ``[B, L*C, H, W]``.
+    """
+
+    def __init__(self, depth=9, hidden=30, plain_ops=False, generator=None):
+        super().__init__()
+        self.depth = depth
+        self.plain_ops = plain_ops
+        self.kernel_hidden1 = DenseParams(1, hidden, generator)
+        self.kernel_hidden2 = DenseParams(hidden, hidden, generator)
+        self.kernel_out = DenseParams(hidden, 1, generator, std=1e-2)
+
+    def forward(self, events, timestamps, sample_idx, imsize,
+                num_elements: int, batch_size: int):
+        H, W = imsize
+        C = self.depth
+        L = num_elements
+        B = batch_size
+
+        # --- element time windows -------------------------------------
+        starts = segment_starts(sample_idx, B)                     # [B]
+        valid = events.sample_index < B                            # padding
+        safe_sample = events.sample_index.clamp(0, B - 1)
+        safe_elem = events.element_index.clamp(0, L - 1)
+        ts_base = (starts[safe_sample.long()] + safe_elem).long()
+        t0 = timestamps[ts_base]
+        t1 = timestamps[ts_base + 1]
+        denom = torch.clamp(t1 - t0, min=1e-9)
+        t_norm = ((events.timestamp - t0) / denom).clamp(0.0, 1.0)  # [E]
+
+        # --- learnable temporal kernel, channel-major [C, E] ------------
+        centers = torch.arange(C, dtype=torch.float32,
+                               device=t_norm.device) / max(C - 1, 1)
+        delta = t_norm[None, :] - centers[:, None]                 # [C, E]
+        w1, b1 = self.kernel_hidden1()
+        w2, b2 = self.kernel_hidden2()
+        w3, b3 = self.kernel_out()
+        mlp = kernel_mlp_cuda.plain if self.plain_ops \
+            else kernel_mlp_cuda.kernel_mlp
+        k_out = mlp(delta, w1, b1, w2, b2, w3, b3)
+        # residual triangular kernel: the init stays near the classic
+        # voxel grid
+        tri = torch.clamp(1.0 - delta.abs() * max(C - 1, 1), min=0.0)
+        value = (tri + k_out) * events.polarity[None, :]
+        value = torch.where(valid[None, :], value, 0.0)
+        value = value.T.contiguous()                                # [E, C]
+
+        # --- voxel binning ----------------------------------------------
+        plane = safe_sample * L + safe_elem
+        vox = voxel_cuda.plain if self.plain_ops else voxel_cuda.voxelize
+        grid = vox(events.x, events.y, plane, value, valid, B * L, H, W)
+        # [B*L, H, W, C] -> [B, L*C, H, W], channel l*C + c
+        grid = grid.reshape(B, L, H, W, C).permute(0, 1, 4, 2, 3)
+        return grid.reshape(B, L * C, H, W)
+
+
+class ResBlock(nn.Module):
+
+    def __init__(self, channels, generator):
+        super().__init__()
+        self.Conv_0 = Conv(channels, channels, 3, generator)
+        self.Conv_1 = Conv(channels, channels, 3, generator)
+
+    def forward(self, x):
+        h = F.relu(self.Conv_0(x))
+        return F.relu(x + self.Conv_1(h))
+
+
+class Predictor(nn.Module):
+    """Conv encoder-decoder with flow heads at 1/8, 1/4, 1/2 and full
+    resolution (NCHW), ReLU activations."""
+
+    def __init__(self, in_channels, base_channels=64, generator=None):
+        super().__init__()
+        b = base_channels
+        enc = (b, 2 * b, 4 * b, 8 * b)
+        cin = in_channels
+        for i, ch in enumerate(enc):
+            setattr(self, f'enc{i}', Conv(cin, ch, 3, generator, stride=2))
+            cin = ch
+        self.res0 = ResBlock(8 * b, generator)
+        self.res1 = ResBlock(8 * b, generator)
+        cin = 8 * b
+        for i, ch in enumerate((4 * b, 2 * b, b, b // 2)):
+            skip = enc[2 - i] if i < 3 else 0
+            flow = 2 if i > 0 else 0
+            setattr(self, f'dec{i}',
+                    Conv(cin + skip + flow, ch, 3, generator))
+            setattr(self, f'flow{i}', Conv(ch, 2, 1, generator, std=1e-3))
+            cin = ch
+
+    def forward(self, x):
+        skips = []
+        for i in range(4):
+            x = F.relu(getattr(self, f'enc{i}')(x))
+            skips.append(x)
+        x = self.res1(self.res0(x))
+
+        flows, features = [], []
+        flow = None
+        for i in range(4):
+            parts = [upsample2x_nearest(x)]
+            if i < 3:
+                parts.append(skips[2 - i])        # 1/8, 1/4, 1/2 resolution
+            if flow is not None:
+                parts.append(upsample2x_nearest(flow) * 2.0)
+            x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
+            x = F.relu(getattr(self, f'dec{i}')(x))
+            features.append(x)
+            flow = getattr(self, f'flow{i}')(x.float())   # heads in fp32
+            flows.append(flow)
+        return flows, features
+
+
+class Model(nn.Module):
+    """EVFlowNet on raw padded events.
+
+    ``forward`` returns ``(flows, flow_ts, flow_sample_idx)``, plus the
+    decoder features when ``intermediate``: flows are ``[B, 2, H/2^i,
+    W/2^i]`` for i = 3..0, ``flow_ts`` ``[B, 2]`` the (start, stop)
+    timestamps of each prediction, ``flow_sample_idx`` ``arange(B)``.
+    """
+
+    def __init__(self, max_sequence_length=1, event_representation_depth=9,
+                 base_channels=64, plain_ops=False, generator=None,
+                 device=None):
+        super().__init__()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.max_sequence_length = max_sequence_length
+        depth = event_representation_depth
+        self.quantization_layer = QuantizationLayer(
+            depth=depth, plain_ops=plain_ops, generator=generator)
+        self.predictor = Predictor(depth * max_sequence_length,
+                                   base_channels, generator)
+        if device is not None:
+            self.to(device)
+
+    def output_axes(self):
+        """Output axis of every parameter, None for biases: axis 0 of a
+        conv weight ``[out, in, kh, kw]``, axis 1 of a dense kernel
+        ``[in, out]`` (gradient centralisation averages over the rest)."""
+        axes = {}
+        for prefix, module in self.named_modules():
+            if isinstance(module, Conv):
+                axes[f'{prefix}.weight'] = 0
+            elif isinstance(module, DenseParams):
+                axes[f'{prefix}.kernel'] = 1
+            else:
+                continue
+            axes[f'{prefix}.bias'] = None
+        return axes
+
+    def _batch_size(self, timestamps):
+        num_timestamps = self.max_sequence_length + 1
+        if timestamps.shape[0] % num_timestamps:
+            raise ValueError('timestamps must hold (sequence_length + 1) '
+                             'entries per sample')
+        return timestamps.shape[0] // num_timestamps
+
+    def forward(self, events, timestamps, sample_idx,
+                imsize: Tuple[int, int], intermediate: bool = False):
+        batch_size = self._batch_size(timestamps)
+        grid = self.quantization_layer(events, timestamps, sample_idx,
+                                       tuple(imsize),
+                                       self.max_sequence_length, batch_size)
+        flows, features = self.predictor(grid)
+
+        starts = segment_starts(sample_idx, batch_size).long()
+        flow_ts = torch.stack([timestamps[starts], timestamps[starts + 1]],
+                              dim=1)
+        flow_sample_idx = torch.arange(batch_size, dtype=torch.int32,
+                                       device=timestamps.device)
+        if intermediate:
+            return tuple(flows), flow_ts, flow_sample_idx, tuple(features)
+        return tuple(flows), flow_ts, flow_sample_idx

@@ -1,0 +1,149 @@
+"""The port stands without JAX, and its kernel wrappers route by device.
+
+- In a fresh interpreter, importing every module of the port and running
+  one CPU training step loads none of jax, flax or optax.
+- CPU tensors go to the plain twins and leave the launch counters alone.
+- On a CUDA card (tests marked ``cuda``; they skip without one) each
+  kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, K2
+  forward 2e-6 and its seven gradients 1e-5 * scale, the tolerances of
+  the JAX package's tests/ops/test_voxel_pallas.py and
+  tests/ops/test_kernel_mlp.py.  This file imports no JAX, so on a
+  machine without it run ``python -m pytest --noconftest
+  tests/test_torch_no_jax.py``.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from dvs_of_training_framework_tpu_torch.ops import (kernel_mlp_cuda,
+                                                voxel_cuda)
+
+REPO = Path(__file__).resolve().parents[1]
+
+STEP = r'''
+import importlib, pkgutil, sys, types
+import numpy as np, torch
+import dvs_of_training_framework_tpu_torch as port
+for info in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):
+    importlib.import_module(info.name)
+from dvs_of_training_framework_tpu_torch.data import pad_batch
+from dvs_of_training_framework_tpu_torch.losses import MultiScaleLoss
+from dvs_of_training_framework_tpu_torch.models import Model
+from dvs_of_training_framework_tpu_torch.training import (
+    construct_optimizer, create_train_state, make_train_step)
+
+rng = np.random.default_rng(0)
+B, H, W, n = 2, 16, 16, 60
+collated = {
+    'events': {'x': rng.integers(0, W, n), 'y': rng.integers(0, H, n),
+               'timestamp': rng.uniform(0, 0.04, n),
+               'polarity': rng.choice([-1.0, 1.0], n),
+               'element_index': np.zeros(n, int),
+               'sample_index': np.sort(rng.integers(0, B, n))},
+    'timestamps': np.tile([0.0, 0.04], B),
+    'sample_idx': np.repeat(np.arange(B), 2),
+    'images': rng.uniform(0, 255, (2 * B, H, W)), 'size': B}
+model = Model(event_representation_depth=3, base_channels=4)
+args = types.SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
+                             half_life=1e5, num_warmup_steps=0,
+                             training_steps=10, rs=0.5)
+step = make_train_step(
+    model, MultiScaleLoss([(H >> s, W >> s) for s in (3, 2, 1, 0)]),
+    construct_optimizer(args, model), [0.5, 1, 1], 1)
+state, (loss, _) = step(create_train_state(),
+                        pad_batch(collated, 64).to('cpu'))
+assert state.step == 1 and torch.isfinite(loss)
+loaded = sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules)
+print('LOADED', loaded)
+'''
+
+
+def test_port_runs_a_step_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', STEP], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert 'LOADED []' in proc.stdout, proc.stdout
+
+
+def test_cpu_tensors_take_the_twins():
+    rng = np.random.default_rng(0)
+    E, C, P, H, W = 50, 3, 2, 4, 5
+    x = torch.from_numpy(rng.integers(0, W, E).astype(np.int32))
+    y = torch.from_numpy(rng.integers(0, H, E).astype(np.int32))
+    plane = torch.from_numpy(np.sort(rng.integers(0, P, E))
+                             .astype(np.int32))
+    w = torch.from_numpy(rng.normal(size=(E, C)).astype(np.float32))
+    valid = torch.arange(E) < 40
+    delta = torch.from_numpy(rng.uniform(-1, 1, (C, E)).astype(np.float32))
+    params = [torch.from_numpy(rng.normal(size=s).astype(np.float32))
+              for s in [(1, 8), (8,), (8, 8), (8,), (8, 1), (1,)]]
+    before = (dict(voxel_cuda.launches), dict(kernel_mlp_cuda.launches))
+    assert torch.equal(voxel_cuda.voxelize(x, y, plane, w, valid, P, H, W),
+                       voxel_cuda.plain(x, y, plane, w, valid, P, H, W))
+    assert torch.equal(kernel_mlp_cuda.kernel_mlp(delta, *params),
+                       kernel_mlp_cuda.plain(delta, *params))
+    assert (voxel_cuda.launches, kernel_mlp_cuda.launches) == before
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+def test_voxelize_kernel_matches_twin(cuda):
+    rng = np.random.default_rng(1)
+    E, C, P, H, W = 20000, 9, 8, 64, 80
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(0, W, E).astype(np.int32),
+        rng.integers(0, H, E).astype(np.int32),
+        np.sort(rng.integers(0, P, E)).astype(np.int32),
+        rng.normal(size=(E, C)).astype(np.float32),
+        np.arange(E) < E - 999)]
+    g = torch.randn(P, H, W, C, device=cuda)
+    outs = []
+    for fn in (voxel_cuda.voxelize, voxel_cuda.plain):
+        w = args[3].clone().requires_grad_(True)
+        grid = fn(*args[:3], w, args[4], P, H, W)
+        grid.backward(g)
+        outs.append((grid.detach(), w.grad))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-6, atol=1e-6)
+    assert not outs[0][1][E - 999:].any()
+
+
+@pytest.mark.cuda
+def test_kernel_mlp_kernel_matches_twin(cuda):
+    rng = np.random.default_rng(2)
+    hd = 30
+    arrays = [rng.uniform(-1.2, 1.2, (9, 30001)),
+              rng.normal(size=(1, hd)), 0.1 * rng.normal(size=hd),
+              rng.normal(size=(hd, hd)) / np.sqrt(hd),
+              0.1 * rng.normal(size=hd),
+              rng.normal(size=(hd, 1)) / np.sqrt(hd),
+              0.1 * rng.normal(size=1)]
+    g = torch.randn(9, 30001, device=cuda)
+    results = []
+    for fn in (kernel_mlp_cuda.kernel_mlp, kernel_mlp_cuda.plain):
+        ts = [torch.from_numpy(a.astype(np.float32)).to(cuda)
+              .requires_grad_(True) for a in arrays]
+        out = fn(*ts)
+        out.backward(g)
+        results.append((out.detach(), [t.grad for t in ts]))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(results[0][0], results[1][0], rtol=2e-6,
+                               atol=2e-6)
+    for got, want in zip(results[0][1], results[1][1]):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
