@@ -11,6 +11,13 @@ Counterpart of ``dvs_of_training_framework_tpu/losses/loss.py``:
 
 Everything is computed at fixed shapes with masked reductions, so the loss
 needs no host synchronisation.
+
+The warp has two forms, as in the JAX package: ``F.grid_sample`` (the
+golden path) and ``grid_sample_onehot``, whose corner values come from
+the K3 kernel on the card (the bf16x2 recipe).  ``bf16x2`` is the JAX
+package's tri-state loss precision (False, True or ``'x1'``, from
+``LOSS_PRECISIONS``); on Hopper every mode gives exact fp32 corners, so
+it only selects the form.
 """
 from typing import Sequence, Tuple
 
@@ -18,15 +25,30 @@ import torch
 
 from ..ops.charbonnier import charbonnier_loss
 from ..ops.resize import resize_bilinear
-from ..ops.warp import grid_sample
+from ..ops.warp import grid_sample, grid_sample_onehot
+
+# --loss-precision -> the bf16x2 flag (JAX losses/loss.py init_losses)
+LOSS_PRECISIONS = {'highest': False, 'bf16x2': True, 'bf16x1': 'x1'}
 
 
 class SingleScaleLoss:
-    """Loss terms for one prediction scale ``(H, W)``."""
+    """Loss terms for one prediction scale ``(H, W)``.
 
-    def __init__(self, pred_shape: Tuple[int, int]):
+    ``use_mxu_warp``: None picks the corner warp exactly for CUDA frames
+    of one channel under a truthy ``bf16x2`` (the JAX package's
+    ``_use_pallas`` policy, with the card in the TPU's place), and
+    ``F.grid_sample`` otherwise; True or False force one form.
+    ``plain_ops=True`` gives the corner warp its plain twin instead of the
+    K3 kernel.
+    """
+
+    def __init__(self, pred_shape: Tuple[int, int], use_mxu_warp=None,
+                 bf16x2=False, plain_ops: bool = False):
         self.H, self.W = int(pred_shape[0]), int(pred_shape[1])
         self._grid = {}   # pixel-coordinate base grid [2, H, W] per device
+        self.use_mxu_warp = use_mxu_warp
+        self.bf16x2 = bf16x2
+        self.plain_ops = plain_ops
 
     def base_grid(self, device) -> torch.Tensor:
         if device not in self._grid:
@@ -44,8 +66,19 @@ class SingleScaleLoss:
         gy = grid[:, 1] / ((self.H - 1) / 2.0) - 1.0
         return torch.stack([gx, gy], dim=1)                     # [N, 2, H, W]
 
+    def _corner_warp(self, images) -> bool:
+        if self.use_mxu_warp is None:
+            return bool(self.bf16x2) and images.is_cuda \
+                and images.shape[1] == 1
+        return bool(self.use_mxu_warp)
+
     def photometric_loss(self, prev_images, next_images, warp_grid):
-        warped = grid_sample(next_images, warp_grid.permute(0, 2, 3, 1))
+        nhwc_grid = warp_grid.permute(0, 2, 3, 1)
+        if self._corner_warp(next_images):
+            warped = grid_sample_onehot(next_images, nhwc_grid, self.bf16x2,
+                                        self.plain_ops)
+        else:
+            warped = grid_sample(next_images, nhwc_grid)
         return charbonnier_loss(warped - prev_images)
 
     def smoothness_loss(self, flow):
@@ -105,12 +138,15 @@ class MultiScaleLoss:
     """Per-scale losses over a tuple of flow predictions.
 
     The image interpolation is chained across scales as in the reference:
-    scale i+1 resizes the scale-i images, not the originals.
+    scale i+1 resizes the scale-i images, not the originals.  ``bf16x2``
+    and ``plain_ops`` go to every scale (see ``SingleScaleLoss``).
     """
 
-    def __init__(self, shapes: Sequence[Tuple[int, int]]):
+    def __init__(self, shapes: Sequence[Tuple[int, int]], bf16x2=False,
+                 plain_ops: bool = False):
         self.shapes = [tuple(map(int, s)) for s in shapes]
-        self.losses = [SingleScaleLoss(s) for s in self.shapes]
+        self.losses = [SingleScaleLoss(s, bf16x2=bf16x2, plain_ops=plain_ops)
+                       for s in self.shapes]
 
     def __call__(self, flows, flow_ts, flow_sample_idx, images, timestamps,
                  sample_idx):

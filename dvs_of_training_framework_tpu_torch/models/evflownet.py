@@ -15,6 +15,14 @@ truncated-normal ``lecun_normal`` (variance 1/fan_in), normal(1e-2) for
 On CUDA the quantization layer runs the K2 kernel-MLP and the K1 voxelize
 kernels; ``plain_ops=True`` runs their plain PyTorch twins instead, as the
 reference path that a kernel run is compared with.
+
+``dtype`` ('float32' or 'bfloat16') is the compute type, flax's ``dtype``:
+the parameters stay float32 (flax's ``param_dtype``) and are cast where
+the JAX model casts them.  Each ``Conv`` casts its input, weight and bias;
+the kernel-MLP runs in float32 and its output is cast, as the TPU
+kernel's path does; the voxel grid is accumulated in float32 and cast;
+the upsampled flow is cast before the decoder's concatenation; the flow
+heads stay float32.
 """
 import math
 from typing import Tuple
@@ -72,13 +80,17 @@ class Conv(nn.Module):
     """2-D convolution with flax ``nn.Conv``'s 'SAME' padding and init.
 
     On an even input a stride-2 3x3 convolution pads (0, 1), not (1, 1).
+    The input, weight and bias are cast to ``dtype``.  Below float32 the
+    bias is added to the rounded convolution, where flax adds it; in
+    float32 the convolution adds it itself.
     """
 
     def __init__(self, features_in, features_out, kernel_size, generator,
-                 stride=1, std=None):
+                 stride=1, std=None, dtype=torch.float32):
         super().__init__()
         k = kernel_size
         self.stride = stride
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(features_out, features_in,
                                                k, k))
         self.bias = nn.Parameter(torch.zeros(features_out))
@@ -90,13 +102,18 @@ class Conv(nn.Module):
 
     def forward(self, x):
         k = self.weight.shape[-1]
+        x = x.to(self.dtype)
+        weight = self.weight.to(self.dtype)
+        bias = self.bias.to(self.dtype)
         top, bottom = _same_pads(x.shape[-2], k, self.stride)
         left, right = _same_pads(x.shape[-1], k, self.stride)
-        if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, self.stride,
-                            padding=(top, left))
-        x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+        if (top, left) != (bottom, right):
+            x = F.pad(x, (left, right, top, bottom))
+            top = left = 0
+        if self.dtype == torch.float32:
+            return F.conv2d(x, weight, bias, self.stride, padding=(top, left))
+        y = F.conv2d(x, weight, None, self.stride, padding=(top, left))
+        return y + bias[:, None, None]
 
 
 class QuantizationLayer(nn.Module):
@@ -108,10 +125,12 @@ class QuantizationLayer(nn.Module):
     ``[B, L*C, H, W]``.
     """
 
-    def __init__(self, depth=9, hidden=30, plain_ops=False, generator=None):
+    def __init__(self, depth=9, hidden=30, plain_ops=False, generator=None,
+                 dtype=torch.float32):
         super().__init__()
         self.depth = depth
         self.plain_ops = plain_ops
+        self.dtype = dtype
         self.kernel_hidden1 = DenseParams(1, hidden, generator)
         self.kernel_hidden2 = DenseParams(hidden, hidden, generator)
         self.kernel_out = DenseParams(hidden, 1, generator, std=1e-2)
@@ -143,11 +162,12 @@ class QuantizationLayer(nn.Module):
         w3, b3 = self.kernel_out()
         mlp = kernel_mlp_cuda.plain if self.plain_ops \
             else kernel_mlp_cuda.kernel_mlp
-        k_out = mlp(delta, w1, b1, w2, b2, w3, b3)
+        k_out = mlp(delta, w1, b1, w2, b2, w3, b3).to(self.dtype)
         # residual triangular kernel: the init stays near the classic
         # voxel grid
         tri = torch.clamp(1.0 - delta.abs() * max(C - 1, 1), min=0.0)
-        value = (tri + k_out) * events.polarity[None, :]
+        value = (tri.to(self.dtype) + k_out) \
+            * events.polarity[None, :].to(self.dtype)
         value = torch.where(valid[None, :], value, 0.0)
         value = value.T.contiguous()                                # [E, C]
 
@@ -156,16 +176,17 @@ class QuantizationLayer(nn.Module):
         vox = voxel_cuda.plain if self.plain_ops else voxel_cuda.voxelize
         grid = vox(events.x, events.y, plane, value, valid, B * L, H, W)
         # [B*L, H, W, C] -> [B, L*C, H, W], channel l*C + c
-        grid = grid.reshape(B, L, H, W, C).permute(0, 1, 4, 2, 3)
+        grid = grid.reshape(B, L, H, W, C).to(self.dtype) \
+            .permute(0, 1, 4, 2, 3)
         return grid.reshape(B, L * C, H, W)
 
 
 class ResBlock(nn.Module):
 
-    def __init__(self, channels, generator):
+    def __init__(self, channels, generator, dtype=torch.float32):
         super().__init__()
-        self.Conv_0 = Conv(channels, channels, 3, generator)
-        self.Conv_1 = Conv(channels, channels, 3, generator)
+        self.Conv_0 = Conv(channels, channels, 3, generator, dtype=dtype)
+        self.Conv_1 = Conv(channels, channels, 3, generator, dtype=dtype)
 
     def forward(self, x):
         h = F.relu(self.Conv_0(x))
@@ -174,24 +195,28 @@ class ResBlock(nn.Module):
 
 class Predictor(nn.Module):
     """Conv encoder-decoder with flow heads at 1/8, 1/4, 1/2 and full
-    resolution (NCHW), ReLU activations."""
+    resolution (NCHW), ReLU activations, computing in ``dtype`` but for
+    the float32 flow heads."""
 
-    def __init__(self, in_channels, base_channels=64, generator=None):
+    def __init__(self, in_channels, base_channels=64, generator=None,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         b = base_channels
         enc = (b, 2 * b, 4 * b, 8 * b)
         cin = in_channels
         for i, ch in enumerate(enc):
-            setattr(self, f'enc{i}', Conv(cin, ch, 3, generator, stride=2))
+            setattr(self, f'enc{i}', Conv(cin, ch, 3, generator, stride=2,
+                                          dtype=dtype))
             cin = ch
-        self.res0 = ResBlock(8 * b, generator)
-        self.res1 = ResBlock(8 * b, generator)
+        self.res0 = ResBlock(8 * b, generator, dtype)
+        self.res1 = ResBlock(8 * b, generator, dtype)
         cin = 8 * b
         for i, ch in enumerate((4 * b, 2 * b, b, b // 2)):
             skip = enc[2 - i] if i < 3 else 0
             flow = 2 if i > 0 else 0
             setattr(self, f'dec{i}',
-                    Conv(cin + skip + flow, ch, 3, generator))
+                    Conv(cin + skip + flow, ch, 3, generator, dtype=dtype))
             setattr(self, f'flow{i}', Conv(ch, 2, 1, generator, std=1e-3))
             cin = ch
 
@@ -209,7 +234,8 @@ class Predictor(nn.Module):
             if i < 3:
                 parts.append(skips[2 - i])        # 1/8, 1/4, 1/2 resolution
             if flow is not None:
-                parts.append(upsample2x_nearest(flow) * 2.0)
+                # cast, or the concatenation would promote to float32
+                parts.append((upsample2x_nearest(flow) * 2.0).to(self.dtype))
             x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
             x = F.relu(getattr(self, f'dec{i}')(x))
             features.append(x)
@@ -229,16 +255,21 @@ class Model(nn.Module):
 
     def __init__(self, max_sequence_length=1, event_representation_depth=9,
                  base_channels=64, plain_ops=False, generator=None,
-                 device=None):
+                 device=None, dtype='float32'):
         super().__init__()
+        if dtype not in ('float32', 'bfloat16'):
+            raise ValueError(f"dtype must be 'float32' or 'bfloat16', got "
+                             f'{dtype!r}')
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.max_sequence_length = max_sequence_length
         depth = event_representation_depth
+        compute = getattr(torch, dtype)
         self.quantization_layer = QuantizationLayer(
-            depth=depth, plain_ops=plain_ops, generator=generator)
+            depth=depth, plain_ops=plain_ops, generator=generator,
+            dtype=compute)
         self.predictor = Predictor(depth * max_sequence_length,
-                                   base_channels, generator)
+                                   base_channels, generator, dtype=compute)
         if device is not None:
             self.to(device)
 

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with nvcc on first use and bind them.
 
 The sources in ``csrc/`` have a plain C interface, so they compile with
-nvcc alone in seconds (no PyTorch headers) into one shared library, which
-``ctypes`` loads.  The library lands in ``build/kernels/`` at the root of
+nvcc alone in seconds (no PyTorch headers), one nvcc process per source,
+all started together, and link into one shared library, which ``ctypes``
+loads.  The library lands in ``build/kernels/`` at the root of
 the checkout, named by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as is.  Nothing here runs
 at import time: the CPU tests import every module of the port.
@@ -18,21 +19,21 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / 'csrc'
 BUILD_DIR = PACKAGE.parent / 'build' / 'kernels'
-SOURCES = ('voxelize.cu', 'kernel_mlp.cu')
+SOURCES = ('voxelize.cu', 'kernel_mlp.cu', 'warp_corners.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
-              '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
-              '-Xptxas', '-v')
+              '-std=c++17', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    'voxelize_fwd': [_P] * 6 + [_LL, _I, _I, _I, _I, _P],
-    'voxelize_bwd': [_P] * 6 + [_LL, _I, _I, _I, _I, _P],
+    'voxelize_fwd': [_P] * 6 + [_LL, _I, _I, _I, _I, _I, _P],
+    'voxelize_bwd': [_P] * 6 + [_LL, _I, _I, _I, _I, _I, _P],
     'kernel_mlp_fwd': [_P] * 8 + [_LL, _I, _P],
     'kernel_mlp_bwd': [_P] * 11 + [_LL, _I, _I, _P],
     'kernel_mlp_grad_size': [],
+    'warp_corners': [_P] * 4 + [_I, _I, _I, _I, _P],
 }
 
 
@@ -64,15 +65,31 @@ def build() -> tuple:
     if lib.exists():
         return lib, ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
-    cmd = [find_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    nvcc = find_nvcc()
+    stem = f'{lib.stem}.{os.getpid()}'
+    objects = [BUILD_DIR / f'{stem}.{Path(name).stem}.o' for name in SOURCES]
+    steps = [[nvcc, *NVCC_FLAGS, '-c', str(CSRC / name), '-o', str(obj)]
+             for name, obj in zip(SOURCES, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in steps]
+    outs = [proc.communicate()[0] for proc in procs]   # wait for all
+    for cmd, proc, out in zip(steps, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
+                               f'{" ".join(cmd)}\n{out}')
+    log = ''.join(outs)
+    tmp = BUILD_DIR / f'{stem}.so.tmp'
+    cmd = [nvcc, *NVCC_FLAGS[:2], '-shared', '-o', str(tmp),
+           *map(str, objects)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f'nvcc failed with code {proc.returncode}:\n'
                            f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, lib)   # atomic: concurrent builders never see a partial
-    return lib, proc.stdout + proc.stderr
+    return lib, log + proc.stdout + proc.stderr
 
 
 @functools.cache

@@ -5,7 +5,9 @@ Counterpart of ``voxelize_pallas`` in
 the same arguments as ``voxelize_scatter``, its plain twin.  A CUDA tensor
 always goes through the kernel, which raises on what it does not take; a
 CPU tensor goes to the twin.  Unlike the TPU kernel this one needs no
-plane-sorted events.
+plane-sorted events.  The weights are float32, or bfloat16 in the bf16
+recipe; the grid is float32 either way, and the weights' gradient comes
+back in the weights' dtype, as the JAX kernel returns it.
 """
 import torch
 
@@ -17,10 +19,12 @@ launches = {'fwd': 0, 'bwd': 0}
 
 plain = voxelize_scatter
 
+_WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+
 
 def _check_inputs(x, y, plane, weights, valid):
-    if weights.dtype != torch.float32 or weights.dim() != 2:
-        raise ValueError(f'weights must be float32 [E, C], got '
+    if weights.dtype not in _WEIGHT_DTYPES or weights.dim() != 2:
+        raise ValueError(f'weights must be float32 or bfloat16 [E, C], got '
                          f'{weights.dtype} {tuple(weights.shape)}')
     E = weights.shape[0]
     if E == 0 or weights.shape[1] == 0:
@@ -51,10 +55,11 @@ class _Voxelize(torch.autograd.Function):
         status = _build.library().voxelize_fwd(
             x.data_ptr(), y.data_ptr(), plane.data_ptr(), weights.data_ptr(),
             valid.data_ptr(), out.data_ptr(), E, C, num_planes, height,
-            width, stream)
+            width, weights.dtype == torch.bfloat16, stream)
         _build.check(status, 'voxelize_fwd')
         launches['fwd'] += 1
         ctx.save_for_backward(x, y, plane, valid)
+        ctx.weight_dtype = weights.dtype
         return out
 
     @staticmethod
@@ -62,12 +67,13 @@ class _Voxelize(torch.autograd.Function):
         x, y, plane, valid = ctx.saved_tensors
         P, H, W, C = g.shape
         g = g.contiguous().float()
-        dw = torch.empty((x.shape[0], C), dtype=torch.float32,
+        dw = torch.empty((x.shape[0], C), dtype=ctx.weight_dtype,
                          device=g.device)
         stream = torch.cuda.current_stream(g.device).cuda_stream
         status = _build.library().voxelize_bwd(
             x.data_ptr(), y.data_ptr(), plane.data_ptr(), valid.data_ptr(),
-            g.data_ptr(), dw.data_ptr(), x.shape[0], C, P, H, W, stream)
+            g.data_ptr(), dw.data_ptr(), x.shape[0], C, P, H, W,
+            ctx.weight_dtype == torch.bfloat16, stream)
         _build.check(status, 'voxelize_bwd')
         launches['bwd'] += 1
         return None, None, None, dw, None, None, None, None
@@ -78,9 +84,9 @@ def voxelize(x, y, plane, weights, valid,
     """Voxelize events: ``grid[p, y_e, x_e, c] += weights[e, c]``.
 
     Args match ``ops.voxel.voxelize_scatter``; on CUDA, x, y and plane are
-    int32, valid bool and weights float32 ``[E, C]``, all contiguous.
-    Returns float32 ``[num_planes, height, width, C]``; the gradient flows
-    to ``weights`` only.
+    int32, valid bool and weights float32 or bfloat16 ``[E, C]``, all
+    contiguous.  Returns float32 ``[num_planes, height, width, C]``; the
+    gradient flows to ``weights`` only, in their dtype.
     """
     if weights.is_cuda:
         _check_inputs(x, y, plane, weights, valid)

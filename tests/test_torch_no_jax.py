@@ -1,13 +1,16 @@
 """The port stands without JAX, and its kernel wrappers route by device.
 
 - In a fresh interpreter, importing every module of the port and running
-  one CPU training step loads none of jax, flax or optax.
+  one CPU training step of the golden configuration and one of the bf16
+  recipe loads none of jax, flax or optax.
 - CPU tensors go to the plain twins and leave the launch counters alone.
 - On a CUDA card (tests marked ``cuda``; they skip without one) each
-  kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, K2
-  forward 2e-6 and its seven gradients 1e-5 * scale, the tolerances of
-  the JAX package's tests/ops/test_voxel_pallas.py and
-  tests/ops/test_kernel_mlp.py.  This file imports no JAX, so on a
+  kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, with
+  bf16 weights forward 1e-5 and a bf16 backward, K2 forward 2e-6 and its
+  seven gradients 1e-5 * scale, the tolerances of the JAX package's
+  tests/ops/test_voxel_pallas.py and tests/ops/test_kernel_mlp.py; K3's
+  corners exactly (a gather is exact) and the warp's grid gradient at
+  1e-4 (tests/ops/test_warp_parity.py).  This file imports no JAX, so on a
   machine without it run ``python -m pytest --noconftest
   tests/test_torch_no_jax.py``.
 """
@@ -21,7 +24,8 @@ import pytest
 import torch
 
 from dvs_of_training_framework_tpu_torch.ops import (kernel_mlp_cuda,
-                                                voxel_cuda)
+                                                     voxel_cuda, warp,
+                                                     warp_cuda)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -48,16 +52,21 @@ collated = {
     'timestamps': np.tile([0.0, 0.04], B),
     'sample_idx': np.repeat(np.arange(B), 2),
     'images': rng.uniform(0, 255, (2 * B, H, W)), 'size': B}
-model = Model(event_representation_depth=3, base_channels=4)
 args = types.SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
                              half_life=1e5, num_warmup_steps=0,
                              training_steps=10, rs=0.5)
-step = make_train_step(
-    model, MultiScaleLoss([(H >> s, W >> s) for s in (3, 2, 1, 0)]),
-    construct_optimizer(args, model), [0.5, 1, 1], 1)
-state, (loss, _) = step(create_train_state(),
-                        pad_batch(collated, 64).to('cpu'))
-assert state.step == 1 and torch.isfinite(loss)
+shapes = [(H >> s, W >> s) for s in (3, 2, 1, 0)]
+for dtype, bf16x2 in (('float32', False), ('bfloat16', True)):
+    model = Model(event_representation_depth=3, base_channels=4,
+                  dtype=dtype)
+    evaluator = MultiScaleLoss(shapes, bf16x2=bf16x2)
+    for loss in evaluator.losses:
+        loss.use_mxu_warp = bf16x2
+    step = make_train_step(model, evaluator,
+                           construct_optimizer(args, model), [0.5, 1, 1], 1)
+    state, (loss, _) = step(create_train_state(),
+                            pad_batch(collated, 64).to('cpu'))
+    assert state.step == 1 and torch.isfinite(loss)
 loaded = sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules)
 print('LOADED', loaded)
 '''
@@ -89,6 +98,20 @@ def test_cpu_tensors_take_the_twins():
     assert torch.equal(kernel_mlp_cuda.kernel_mlp(delta, *params),
                        kernel_mlp_cuda.plain(delta, *params))
     assert (voxel_cuda.launches, kernel_mlp_cuda.launches) == before
+
+
+def test_cpu_frames_take_the_corner_twin():
+    rng = np.random.default_rng(4)
+    images = torch.from_numpy(rng.normal(size=(2, 1, 6, 7))
+                              .astype(np.float32))
+    iy = torch.from_numpy(rng.uniform(-2, 8, (2, 30)).astype(np.float32))
+    ix = torch.from_numpy(rng.uniform(-2, 9, (2, 30)).astype(np.float32))
+    before = dict(warp_cuda.launches)
+    assert torch.equal(warp_cuda.corner_values(images, iy, ix),
+                       warp.corner_values(images, iy, ix))
+    grid = torch.zeros(2, 3, 4, 2, requires_grad=True)
+    warp.grid_sample_onehot(images, grid, True).sum().backward()
+    assert warp_cuda.launches == before
 
 
 @pytest.fixture
@@ -147,3 +170,59 @@ def test_kernel_mlp_kernel_matches_twin(cuda):
     for got, want in zip(results[0][1], results[1][1]):
         scale = max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_voxelize_kernel_bf16_weights(cuda):
+    rng = np.random.default_rng(3)
+    E, C, P, H, W = 20000, 9, 8, 64, 80
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(0, W, E).astype(np.int32),
+        rng.integers(0, H, E).astype(np.int32),
+        np.sort(rng.integers(0, P, E)).astype(np.int32))]
+    w = torch.from_numpy(rng.normal(size=(E, C)).astype(np.float32)) \
+        .to(cuda).bfloat16()
+    valid = torch.arange(E, device=cuda) < E - 999
+    g = torch.randn(P, H, W, C, device=cuda)
+    outs = []
+    for fn in (voxel_cuda.voxelize, voxel_cuda.plain):
+        wr = w.clone().requires_grad_(True)
+        grid = fn(*args, wr, valid, P, H, W)
+        grid.backward(g)
+        outs.append((grid.detach(), wr.grad))
+    torch.cuda.synchronize()
+    assert outs[0][0].dtype == torch.float32
+    assert outs[0][1].dtype == torch.bfloat16
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(outs[0][1], outs[1][1], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_corner_kernel_matches_twin(cuda):
+    rng = np.random.default_rng(4)
+    N, H, W = 8, 64, 48
+    images = torch.from_numpy(rng.uniform(0, 255, (N, 1, H, W))
+                              .astype(np.float32)).to(cuda)
+    iy = rng.uniform(-3, H + 2, (N, H * W)).astype(np.float32)
+    ix = rng.uniform(-3, W + 2, (N, H * W)).astype(np.float32)
+    iy[:, :5] = [1e6, -1e6, np.nan, 3e9, -3e9]
+    ix[:, 5:10] = [1e6, -1e6, np.nan, 3e9, -3e9]
+    iy, ix = (torch.from_numpy(a).to(cuda) for a in (iy, ix))
+    got = warp_cuda.corner_values(images, iy, ix)
+    torch.cuda.synchronize()
+    assert torch.equal(got, warp.corner_values(images, iy, ix))
+    assert not got[:, :, :, :10].any()
+
+    grid = torch.from_numpy(rng.uniform(-1.2, 1.2, (N, 20, 30, 2))
+                            .astype(np.float32)).to(cuda)
+    cot = torch.randn(N, 1, 20, 30, device=cuda)
+    results = []
+    for plain_ops in (False, True):
+        g = grid.clone().requires_grad_(True)
+        out = warp.grid_sample_onehot(images, g, True, plain_ops)
+        (out * cot).sum().backward()
+        results.append((out.detach(), g.grad))
+    torch.cuda.synchronize()
+    assert torch.equal(results[0][0], results[1][0])
+    torch.testing.assert_close(results[0][1], results[1][1], rtol=1e-4,
+                               atol=1e-4)

@@ -3,7 +3,8 @@ package's ``voxelize_scatter`` and ``voxelize_pallas`` (interpret mode).
 
 Tolerances are those of tests/ops/test_voxel_pallas.py: forward 1e-5
 (:36, test_forward_matches_scatter), weight gradients 1e-3 (:68,
-test_vjp_matches_scatter).
+test_vjp_matches_scatter), and for bf16 weights a forward at 1e-5 with a
+bf16 weight gradient at 1e-2 (test_bf16_weights_single_pass).
 """
 import jax
 import jax.numpy as jnp
@@ -71,6 +72,36 @@ def test_twin_matches_jax(method, seed):
     np.testing.assert_allclose(w.grad.numpy(), want_dw, rtol=1e-3,
                                atol=1e-3)
     assert np.abs(w.grad.numpy()[700:]).max() == 0.0
+
+
+@pytest.mark.parametrize('seed', [9, 10])
+def test_twin_bf16_weights_match_jax(seed):
+    """The bf16 recipe feeds bf16 weights: the grid stays float32 and the
+    weights' gradient comes back in bf16, as the JAX kernel returns it."""
+    x, y, plane, weights, valid, P, H, W = make_case(seed=seed)
+    w16 = jnp.asarray(weights).astype(jnp.bfloat16)
+    args = tuple(jnp.asarray(a) for a in (x, y, plane))
+
+    def f(w):
+        return voxelize_pallas(*args, w, jnp.asarray(valid), P, H, W, 32,
+                               True)
+
+    want_grid, vjp = jax.vjp(f, w16)
+    (want_dw,) = vjp(2.0 * want_grid)
+    assert want_dw.dtype == jnp.bfloat16
+
+    tw = torch.tensor(np.asarray(w16.astype(jnp.float32))) \
+        .bfloat16().requires_grad_(True)
+    grid = voxel_cuda.voxelize(*(torch.from_numpy(a) for a in (x, y, plane)),
+                               tw, torch.from_numpy(valid), P, H, W)
+    assert grid.dtype == torch.float32
+    np.testing.assert_allclose(grid.detach().numpy(), np.asarray(want_grid),
+                               rtol=1e-5, atol=1e-5)
+    (grid ** 2).sum().backward()
+    assert tw.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(tw.grad.float().numpy(),
+                               np.asarray(want_dw.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
 
 
 def test_twin_unsorted_events_match_jax_scatter():
