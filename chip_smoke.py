@@ -11,7 +11,10 @@ Phases:
 1. device: the card's name and power limit, then the nvcc build of the
    kernels in ``dvs_of_training_framework_tpu_torch/csrc/``;
 2. K1 (voxelize) against its plain twin on a bench batch, forward and
-   backward, with the device time of both; then K1 with bf16 weights;
+   backward, with the device time of both; how many of 200 repeats of
+   the forward on one batch, with fp32 and with bf16 weights, equal the
+   first bit for bit (K1 adds with fp32 atomics); then K1 with bf16
+   weights against its twin;
 3. K2 (kernel-MLP) against its plain twin on delta [9, 2^17], forward and
    the seven gradients, with the device time of both;
 4. K3 (warp corners) against its plain twin on the bench frames at the
@@ -23,10 +26,27 @@ Phases:
 6. the same for one recipe step;
 7. 3 warm-up and 10 timed golden steps on bench batches copied to the
    card each step, with the kernels' launch counters reset just before
-   and checked just after (K3 is not on this path);
-8. two more golden steps under ``torch.profiler``: device busy time a
-   step and the busiest device ops;
-9. and 10. phases 7 and 8 for the recipe (K3 four times a step).
+   and checked just after (K3 is not on this path), four times: with
+   cuDNN's default algorithms, with only its deterministic ones (as the
+   CLI's ``run()`` sets), deterministic again and default again;
+8. two more golden steps under ``torch.profiler`` with each setting:
+   device busy time a step and the busiest device ops;
+9. and 10. phases 7 and 8 for the recipe (K3 four times a step);
+11. the training loop through the CLI's ``run()`` with the production
+    recipe (bf16, ``bf16x2``, bs 8, lr 1e-3, half-life 20000, 200 warm-up
+    steps, clip 1.0, EMA 0.999): 12 steps over an in-memory stream of
+    bench batches with one oversized batch to skip, checkpoints and
+    validation (2 other bench batches) every 4 steps, with the launch
+    counters reset just before and checked just after; prints the loop's
+    step time, the checkpoint write time and size and the validation time;
+12. resume: a fresh model and optimizer load checkpoint 8, bit for bit,
+    and train to step 12 through the loop as phase 11 does, under the
+    profiler for the batch uploads; every parameter is held against the
+    uninterrupted run within twice the card's own run-to-run spread, the
+    largest difference of any parameter between two runs of steps 9-12
+    from the same state, and exactly where those two runs agree;
+13. the EMA export: ``finalize(use_ema=True)`` of checkpoint 12 equals
+    the EMA of the optimizer state and loads into a fresh model.
 
 Prints the kernels as one JSON line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -36,8 +56,10 @@ Usage (from the root of a checkout):  python3 chip_smoke.py
 """
 import importlib.util
 import json
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -49,9 +71,17 @@ import torch
 REPO = Path(__file__).resolve().parent
 WARMUP, STEPS = 3, 10
 TIMING_ITERS = 20
+REPEATS = 200       # K1 launches on one batch, for the atomics' order
 LOSS_WEIGHTS = (0.5, 1, 1)
 CONFIGS = {'golden': ('float32', 'highest'), 'recipe': ('bfloat16', 'bf16x2')}
 KERNEL_SOURCE = 'dvs_of_training_framework_tpu_torch/csrc/'
+LOOP_STEPS, LOOP_EVERY, SKIP_AT = 12, 4, 2
+# JAX-package modules the port may load: the stdlib-only option groups
+# and TensorBoard writer that the CLI shares
+SHARED = {'dvs_of_training_framework_tpu',
+          'dvs_of_training_framework_tpu.utils',
+          'dvs_of_training_framework_tpu.utils.options',
+          'dvs_of_training_framework_tpu.utils.tb'}
 
 
 def card_line():
@@ -267,6 +297,320 @@ def check_counts(label, counts, expected):
                                  f'{expected[name]}')
 
 
+class LoopClock:
+    """The JAX package's timer interface for ``train``: the host clock at
+    each train step's start and the time inside each hook call."""
+    HOOKS = ('serialization', 'validation')
+
+    def __init__(self):
+        self.step_starts = []
+        self.hook_spans = []        # (steps started so far, name, seconds)
+        self.started = {}
+
+    def __call__(self, name):
+        clock = self
+
+        class Span:
+            def start(self):
+                clock.started[name] = time.perf_counter()
+                if name == 'train_step':
+                    clock.step_starts.append(clock.started[name])
+
+            def stop(self):
+                if name in clock.HOOKS:
+                    clock.hook_spans.append(
+                        (len(clock.step_starts), name,
+                         time.perf_counter() - clock.started[name]))
+        return Span()
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def step_ms(self, first):
+        """Host time of steps ``first`` .. ``last - 1`` (1-based), each from
+        its start to the next step's start, less its hooks' time."""
+        hooks = {}
+        for j, _, seconds in self.hook_spans:
+            hooks[j] = hooks.get(j, 0.0) + seconds
+        starts = self.step_starts
+        return [(starts[j] - starts[j - 1] - hooks.get(j, 0.0)) * 1e3
+                for j in range(first, len(starts))]
+
+    def hook_seconds(self, name, every):
+        return [s for j, n, s in self.hook_spans
+                if n == name and j % every == 0]
+
+
+def flat_state(tree, prefix=''):
+    """``{dotted name: leaf}`` of a nested state dict."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out.update(flat_state(value, f'{prefix}{key}.'))
+        else:
+            out[prefix + key] = value
+    return out
+
+
+def clone_tree(tree):
+    """A copy of a nested state with every tensor cloned in place."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(clone_tree(v) for v in tree)
+    return tree
+
+
+def bits_equal(a, b):
+    if isinstance(a, torch.Tensor):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.is_floating_point():
+            view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+            a = a.view(view[a.element_size()])
+            b = b.view(view[b.element_size()])
+        return torch.equal(a, b)
+    return a == b
+
+
+def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
+    """Phases 11-13 in ``out``; returns phase 11's launch counts."""
+    from dvs_of_training_framework_tpu.utils.tb import (NullSummaryWriter,
+                                                         SummaryWriter,
+                                                         read_events)
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.losses import (LOSS_PRECISIONS,
+                                                            MultiScaleLoss)
+    from dvs_of_training_framework_tpu_torch.models import Model
+    from dvs_of_training_framework_tpu_torch.training import (
+        construct_optimizer, create_train_state, make_eval_step,
+        make_train_step)
+    from dvs_of_training_framework_tpu_torch.training.serializer import (
+        Serializer, read_params_file)
+    from dvs_of_training_framework_tpu_torch.training.train import train
+
+    B = collated[0]['size']
+    good = collated[:LOOP_STEPS]
+    val = collated[LOOP_STEPS:LOOP_STEPS + 2]
+    big = dict(collated[0], augmentation_params=None,
+               events={k: np.concatenate([v, v])
+                       for k, v in collated[0]['events'].items()})
+
+    def stream(samples_passed):
+        """The bench batches from sample ``samples_passed`` on, cycled,
+        with the oversized batch once before the third."""
+        i = samples_passed // B
+        while True:
+            if i == SKIP_AT:
+                yield big
+            yield good[i % LOOP_STEPS]
+            i += 1
+
+    args = cli.parse_args([
+        '-m', str(out), '-d', 'cuda', '--height', '256', '--width', '256',
+        '--precision', 'bfloat16', '--loss-precision', 'bf16x2',
+        '-bs', str(B), '-mbs', str(B), '-lr', '1e-3', '--half_life', '20000',
+        '--num-warmup-steps', '200', '--grad-clip-norm', '1.0',
+        '--ema-decay', '0.999', '-ne', str(LOOP_STEPS),
+        '--checkpointing_interval', str(LOOP_EVERY), '-vp', str(LOOP_EVERY),
+        '--permanent_interval', str(2 * LOOP_EVERY), '--num_checkpoints', '2',
+        '--event-capacity', str(capacity)])
+
+    # --- 11. the loop ------------------------------------------------------
+    for counter, key in counters.values():
+        counter[key] = 0
+    clock = LoopClock()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cli.run(args, stream, lambda: val, SummaryWriter(out / 'log'),
+            timers=clock)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = {name: counter[key] for name, (counter, key) in counters.items()}
+
+    scalars = {}
+    for path in (out / 'log').glob('events.out.tfevents.*'):
+        for event in read_events(path):
+            for tag, value in event['scalars'].items():
+                scalars.setdefault(tag, []).append(value)
+    losses = scalars.get('General/Train loss', [])
+    val_losses = scalars.get('General/Validation loss', [])
+    print(f'[11] loop, {LOOP_STEPS} recipe steps through the CLI\'s run(): '
+          'losses ' + ' '.join(f'{v:.5f}' for v in losses))
+    print('  validation losses ' + ' '.join(f'{v:.5f}' for v in val_losses))
+    tags = cli.shapes2tags(cli.flow_shapes(args.shape))
+    want_tags = {f'{kind}/{tag}' for tag in tags
+                 for kind in ('Train/photometric loss',
+                              'Train/smoothness loss',
+                              'Train/out regularization')}
+    want_tags |= {'General/learning rate/0', 'General/learning rate/1'}
+    if (len(losses) != LOOP_STEPS or len(val_losses) != 5
+            or not np.isfinite(losses + val_losses).all()):
+        raise AssertionError('loop: missing or non-finite losses')
+    if not want_tags <= set(scalars):
+        raise AssertionError(f'loop: missing tags {want_tags - set(scalars)}')
+    if scalars.get('General/skipped batches') != [1.0]:
+        raise AssertionError('loop: the oversized batch was not skipped once')
+    lrs = scalars['General/learning rate/1']
+    print(f'  learning rates (predictor) {lrs[0]:.3e} .. {lrs[-1]:.3e}; '
+          'skipped batches 1')
+
+    ser = Serializer(out, args.num_checkpoints, args.permanent_interval)
+    steps = ser.list_known_steps()
+    on_disk = sorted(p.name for p in out.glob('step_*'))
+    print(f'  checkpoints {steps}, files {on_disk}')
+    want_steps = [0, 4, 8, 12]
+    if steps != want_steps or on_disk != sorted(
+            f'step_{s}.ckpt' for s in want_steps):
+        raise AssertionError(f'loop: checkpoints {steps} ({on_disk})')
+
+    # 12 steps and 5 validation passes of 2 batches: before, at 4, 8 and
+    # 12, and after
+    forwards = LOOP_STEPS + 5 * len(val)
+    expected = {'voxelize_fwd': forwards, 'voxelize_bwd': LOOP_STEPS,
+                'kernel_mlp_fwd': forwards, 'kernel_mlp_bwd': LOOP_STEPS,
+                'corner_values': 4 * forwards}
+    print(f'  launches: {counts}')
+    if counts != expected:
+        raise AssertionError(f'loop: launches {counts}, expected {expected}')
+
+    loop_ms = clock.step_ms(WARMUP + 1)
+    ckpt_s = clock.hook_seconds('serialization', LOOP_EVERY)
+    val_s = clock.hook_seconds('validation', LOOP_EVERY)
+    size_mb = (out / f'step_{LOOP_EVERY}.ckpt').stat().st_size / 1e6
+    print(f'  loop step {statistics.median(loop_ms):.3f} ms (median of steps '
+          f'{WARMUP + 1}-{LOOP_STEPS - 1}, hooks excluded: '
+          + ' '.join(f'{v:.1f}' for v in loop_ms)
+          + f'); the bare step of phase 9 with deterministic cuDNN: '
+          f'{bare_ms:.3f} ms')
+    print('  checkpoint write ' + ' '.join(f'{v:.3f}' for v in ckpt_s)
+          + f' s, {size_mb:.1f} MB a checkpoint; validation (2 batches) '
+          + ' '.join(f'{v:.3f}' for v in val_s) + ' s; run() '
+          f'{run_s:.2f} s in all; card: {card}')
+
+    # --- 12. resume from checkpoint 8 -------------------------------------
+    evaluator = MultiScaleLoss(cli.flow_shapes(args.shape),
+                               bf16x2=LOSS_PRECISIONS[args.loss_precision])
+
+    def fresh(seed):
+        model = Model(event_representation_depth=9, dtype=args.precision,
+                      generator=torch.Generator().manual_seed(seed),
+                      device=device)
+        optimizer = construct_optimizer(args, model)
+        step_fn = make_train_step(model, evaluator, optimizer,
+                                  args.loss_weights, 1)
+        return model, optimizer, step_fn
+
+    resume_at = 2 * LOOP_EVERY
+    saved = ser.read_state_dict(resume_at)
+    model, optimizer, step_fn = fresh(1)
+    step, _, _, extra = ser.load_checkpoint(resume_at, model=model,
+                                            optimizer=optimizer)
+    restored = flat_state({'model': model.state_dict(),
+                           'optimizer': optimizer.state_dict()})
+    want = flat_state({'model': saved['model'],
+                       'optimizer': saved['optimizer']})
+    bad = [k for k in want if k not in restored
+           or not bits_equal(restored[k], want[k])]
+    samples = int(extra['samples_passed'])
+    if bad or restored.keys() != want.keys() or step != resume_at \
+            or samples != resume_at * B:
+        raise AssertionError(f'resume: restored state differs: {bad[:5]}, '
+                             f'step {step}, samples {samples}')
+    n_tensors = sum(isinstance(v, torch.Tensor) for v in want.values())
+    print(f'[12] resume from checkpoint {resume_at}: {n_tensors} tensors '
+          '(parameters, moments, slow weights, EMA) and the counts, step '
+          f'{step} and samples passed {samples} restored bit for bit')
+    snapshot = clone_tree((model.state_dict(), optimizer.state_dict()))
+
+    # the resumed steps take the loop's path, as in phase 11, under the
+    # profiler for the batch uploads
+    with profile() as prof:
+        state, samples = train(step_fn, create_train_state(step),
+                               stream(samples), LOOP_STEPS,
+                               NullSummaryWriter(), tags, device,
+                               event_capacity=capacity, init_step=step,
+                               init_samples_passed=samples)
+        torch.cuda.synchronize()
+    copies = {}
+    for e in device_ops(prof.key_averages()):
+        if e.key.startswith('Memcpy HtoD'):
+            copies[e.key] = (e.count, e.device_time_total / 1e3)
+    print('  batch uploads a step in the resumed loop: ' + '; '.join(
+        f'{k} x{n / (LOOP_STEPS - step):g} {ms / (LOOP_STEPS - step):.3f} ms'
+        for k, (n, ms) in copies.items()))
+    if (state.step, samples) != (LOOP_STEPS, LOOP_STEPS * B):
+        raise AssertionError(f'resume: ended at {state.step}, {samples}')
+    resumed = {k: v.clone() for k, v in model.state_dict().items()}
+
+    batches = [pad_batch(good[i % LOOP_STEPS], capacity)
+               for i in range(resume_at, LOOP_STEPS)]
+    noise_runs = []
+    for _ in range(2):       # from the same state, with no serializer
+        model.load_state_dict(snapshot[0])
+        optimizer.load_state_dict(snapshot[1])
+        run_state = create_train_state(resume_at)
+        for batch in batches:
+            run_state, _ = step_fn(run_state, batch.to(device))
+        noise_runs.append(clone_tree(model.state_dict()))
+    uninterrupted = {k: v.to(device) for k, v in
+                     ser.read_state_dict(LOOP_STEPS)['model'].items()}
+    # (resumed vs uninterrupted, run vs run) max abs difference a parameter
+    diffs = {name: (max_abs(resumed[name], want),
+                    max_abs(noise_runs[0][name], noise_runs[1][name]))
+             for name, want in uninterrupted.items()}
+    # the card's spread is the largest run-to-run difference of any
+    # parameter, as one pair of runs is too few to estimate it per
+    # parameter.  With cuDNN deterministic, as run() sets it, only K1's
+    # fp32 atomics can make it nonzero
+    spread = max(d_ab for _, d_ab in diffs.values())
+    worst_ru = max(d_ru for d_ru, _ in diffs.values())
+    for name, (d_ru, d_ab) in diffs.items():
+        if d_ru > 2 * spread or (d_ab == 0 and not bits_equal(
+                resumed[name], uninterrupted[name])):
+            raise AssertionError(f'resume: {name} differs from the '
+                                 f'uninterrupted run by {d_ru:.3e}, the '
+                                 f'card\'s own spread is {spread:.3e} '
+                                 f'({d_ab:.3e} for this parameter)')
+    ratio, ratio_name = max(((d_ru / d_ab, name)
+                             for name, (d_ru, d_ab) in diffs.items() if d_ab),
+                            default=(0.0, 'none'))
+    print(f'  steps {resume_at + 1}-{LOOP_STEPS} after the resume against the '
+          f'uninterrupted run: worst max abs diff {worst_ru:.3e} ('
+          f'{sum(d == 0 for d, _ in diffs.values())}/{len(diffs)} parameters '
+          f'equal bit for bit); two runs from the same state: {spread:.3e} ('
+          f'{sum(d == 0 for _, d in diffs.values())}/{len(diffs)} equal); '
+          f'bound 2x; largest ratio of one parameter\'s two differences '
+          f'{ratio:.2f} ({ratio_name})')
+
+    # --- 13. the EMA export -----------------------------------------------
+    final = ser.read_state_dict(LOOP_STEPS)
+    ema_path = out / 'ema.ckpt'
+    ser.finalize(LOOP_STEPS, ema_path, use_ema=True)
+    exported = read_params_file(ema_path)
+    ema = final['optimizer']['ema_params']
+    if exported.keys() != ema.keys() or not all(
+            bits_equal(exported[k], ema[k]) for k in ema):
+        raise AssertionError('EMA export differs from the optimizer\'s EMA')
+    ema_model, _, _ = fresh(2)
+    ema_model.load_state_dict(exported, strict=True)
+    loss, _ = make_eval_step(ema_model, evaluator, args.loss_weights)(
+        pad_batch(val[0], capacity).to(device))
+    loss = loss.item()
+    live_gap = max(max_abs(ema[k], final['model'][k]) for k in ema)
+    if not np.isfinite(loss) or live_gap == 0:
+        raise AssertionError(f'EMA export: loss {loss}, gap {live_gap}')
+    print(f'[13] finalize(use_ema=True) at step {LOOP_STEPS}: {len(ema)} '
+          'tensors equal the optimizer\'s EMA bit for bit and load into a '
+          f'fresh model (validation loss {loss:.5f}); largest EMA - live '
+          f'weight gap {live_gap:.3e}')
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -307,8 +651,11 @@ def main():
     bench = import_bench()
     B, (H, W), capacity = bench.BATCH_SIZE, bench.IMSIZE, bench.CAPACITY
     rng = np.random.default_rng(0)
-    host = [pad_batch(bench.make_collated(rng, sample_offset=i * B),
-                      capacity) for i in range(WARMUP + STEPS)]
+    # the first WARMUP + STEPS batches feed phases 5-10 and the loop, the
+    # last two the loop's validation
+    collated = [bench.make_collated(rng, sample_offset=i * B)
+                for i in range(WARMUP + STEPS + 2)]
+    host = [pad_batch(c, capacity) for c in collated[:WARMUP + STEPS]]
     n_events = host[0].events.num_events
     print(f'[1] bench batches: B {B}, {H}x{W}, capacity {capacity}, '
           f'{n_events} events in the first')
@@ -376,6 +723,22 @@ def main():
                                     f'voxel_pallas.py:{line}', err, k_ms,
                                     p_ms))
     del graphs
+
+    # K1 adds with fp32 atomics, whose order the card does not fix: how
+    # often does the same batch give another grid?  With bf16 weights (the
+    # recipe's) most sums are exact in fp32, whatever their order
+    for weights in (w, w.bfloat16()):
+        first = voxel_cuda.voxelize(*vox_args, weights, valid, B, H, W)
+        same, worst = 0, 0.0
+        for _ in range(REPEATS):
+            grid = voxel_cuda.voxelize(*vox_args, weights, valid, B, H, W)
+            same += torch.equal(grid.view(torch.int32),
+                                first.view(torch.int32))
+            worst = max(worst, max_abs(grid, first))
+        print(f'  voxelize_fwd with {weights.dtype} weights repeated '
+              f'{REPEATS} times on one batch: {same} grids equal the first '
+              f'bit for bit, largest difference {worst:.3e}')
+    del first, grid
 
     # the recipe's bf16 weights: the grid stays fp32, dw comes back in bf16
     results = vox_results(w.bfloat16())
@@ -525,32 +888,60 @@ def main():
     torch.cuda.synchronize()
 
     # --- 7. to 10. train each config: the main paths -----------------------
-    launches = {}
+    # each config with cuDNN's default algorithms and with only its
+    # deterministic ones (as the CLI's run() sets), in turns off, on, on,
+    # off; the first run's launch counts stand for the path
+    launches, bare_ms = {}, {}
     n = WARMUP + STEPS
     for phases, config in ((('[7]', '[8]'), 'golden'),
                            (('[9]', '[10]'), 'recipe')):
         m = make_model(config)
         evaluator = MultiScaleLoss(
             shapes, bf16x2=LOSS_PRECISIONS[CONFIGS[config][1]])
-        step_fn, state, step_ms, counts = train(
-            f'{phases[0]} {config}', m, evaluator, host, device, card,
-            counters)
-        check_counts(config, counts, {
-            'voxelize_fwd': n, 'voxelize_bwd': n, 'kernel_mlp_fwd': n,
-            'kernel_mlp_bwd': n,
-            'corner_values': 4 * n if config == 'recipe' else 0})
-        launches[config] = counts
-        trace_steps(phases[1], step_fn, state, host[:2], device, step_ms)
+        times = {False: [], True: []}
+        for deterministic in (False, True, True, False):
+            torch.backends.cudnn.deterministic = deterministic
+            label = f'{phases[0]} {config}, cudnn.deterministic={deterministic}'
+            step_fn, state, step_ms, counts = train(
+                label, m, evaluator, host, device, card, counters)
+            check_counts(config, counts, {
+                'voxelize_fwd': n, 'voxelize_bwd': n, 'kernel_mlp_fwd': n,
+                'kernel_mlp_bwd': n,
+                'corner_values': 4 * n if config == 'recipe' else 0})
+            launches.setdefault(config, counts)
+            times[deterministic].append(step_ms)
+        bare_ms[config] = {k: statistics.mean(v) for k, v in times.items()}
+        print(f'{phases[0]} {config} step: {bare_ms[config][False]:.3f} ms '
+              f'with cuDNN\'s default algorithms, {bare_ms[config][True]:.3f} '
+              'ms with only its deterministic ones (means of two 10-step '
+              f'windows each); card: {card}')
+        for deterministic in (False, True):
+            torch.backends.cudnn.deterministic = deterministic
+            trace_steps(f'{phases[1]} cudnn.deterministic={deterministic}',
+                        step_fn, state, host[:2], device,
+                        bare_ms[config][deterministic])
+        torch.backends.cudnn.deterministic = False
         del step_fn, state, m, evaluator
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    for entry in kernels:
-        entry['launches'] = launches['recipe'][entry['name']]
-        entry['golden_launches'] = launches['golden'][entry['name']]
+    # --- 11. to 13. the loop, resume and the EMA export ------------------
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_') as out:
+        launches['loop'] = loop_phases(Path(out), collated, capacity, device,
+                                       card, counters,
+                                       bare_ms['recipe'][True])
 
-    jax_side = sorted(m for m in sys.modules if m.split('.')[0] in (
-        'jax', 'flax', 'optax', 'dvs_of_training_framework_tpu'))
+    for entry in kernels:
+        name = entry['name']
+        entry['launches'] = launches['recipe'][name] + launches['loop'][name]
+        entry['recipe_launches'] = launches['recipe'][name]
+        entry['loop_launches'] = launches['loop'][name]
+        entry['golden_launches'] = launches['golden'][name]
+
+    jax_side = sorted(m for m in sys.modules
+                      if m.split('.')[0] in ('jax', 'flax', 'optax')
+                      or (m.split('.')[0] == 'dvs_of_training_framework_tpu'
+                          and m not in SHARED))
     if jax_side:
         raise AssertionError(f'the port loaded JAX-side modules: {jax_side}')
 

@@ -4,8 +4,10 @@ Counterpart of the raw, fixed-capacity path of
 ``dvs_of_training_framework_tpu/data/schema.py`` (``EventBuffer``,
 ``Batch``, ``pad_events``, ``pad_batch``).  The dataclasses hold numpy
 arrays on the host and torch tensors on the device; ``.to(device)``
-moves a host batch over.  Padding rows carry ``sample_index =
-batch_size``, one past the last sample.
+moves a host batch over, and ``.pin_memory()`` first copies it into
+page-locked host memory, from which that copy can run asynchronously.
+Padding rows carry ``sample_index = batch_size``, one past the last
+sample.
 """
 import dataclasses
 
@@ -17,6 +19,12 @@ def _to(value, device, non_blocking):
     if isinstance(value, np.ndarray):
         value = torch.from_numpy(value)
     return value.to(device, non_blocking=non_blocking)
+
+
+def _pin(value):
+    if isinstance(value, np.ndarray):
+        value = torch.from_numpy(value)
+    return value.pin_memory()
 
 
 @dataclasses.dataclass
@@ -50,6 +58,11 @@ class EventBuffer:
                   if f.name != 'num_events'}
         return EventBuffer(num_events=int(self.num_events), **arrays)
 
+    def pin_memory(self) -> 'EventBuffer':
+        return dataclasses.replace(self, **{
+            f.name: _pin(getattr(self, f.name))
+            for f in dataclasses.fields(self) if f.name != 'num_events'})
+
 
 @dataclasses.dataclass
 class Batch:
@@ -74,6 +87,12 @@ class Batch:
                      sample_idx=_to(self.sample_idx, device, non_blocking),
                      images=_to(self.images, device, non_blocking),
                      size=self.size)
+
+    def pin_memory(self) -> 'Batch':
+        return Batch(events=self.events.pin_memory(),
+                     timestamps=_pin(self.timestamps),
+                     sample_idx=_pin(self.sample_idx),
+                     images=_pin(self.images), size=self.size)
 
 
 def pad_events(events: dict, batch_size: int, capacity: int) -> EventBuffer:

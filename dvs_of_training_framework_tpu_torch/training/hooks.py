@@ -1,0 +1,57 @@
+"""Periodic training hooks: checkpointing and validation.
+
+Counterpart of ``dvs_of_training_framework_tpu/training/hooks.py``
+(reference utils/hooks/serialization.py, utils/hooks/validation.py).
+The model and the optimizer hold the live state and are updated in place,
+so the hooks read them directly.
+"""
+import copy
+
+from .train import validate
+
+
+class SerializationHook:
+    """Checkpoint the model and the optimizer and flush the TensorBoard
+    log together, so the metric history stays aligned with the
+    checkpoints across crashes."""
+
+    def __init__(self, serializer, model, optimizer, logger):
+        self.serializer = serializer
+        self.model = model
+        self.optimizer = optimizer
+        self.logger = logger
+
+    def __call__(self, steps: int, samples: int):
+        self.serializer.checkpoint_model(
+            self.model.state_dict(),
+            self.optimizer.state_dict(),
+            global_step=steps,
+            samples_passed=samples)
+        self.logger.flush()
+        print(f'Flushed logs for step {steps} ({samples} passed)')
+
+
+class ValidationHook:
+    """Runs a validation pass over the validation loader."""
+
+    def __init__(self, eval_step, loader_factory, logger, tags, device,
+                 event_capacity=2 ** 18):
+        """
+        Args:
+            eval_step: ``batch -> (loss, terms)`` (``state.make_eval_step``).
+            loader_factory: zero-argument callable producing a fresh
+                finite validation loader.
+            logger: SummaryWriter.
+            tags: per-scale tags.
+            device: the torch device of the model.
+        """
+        self.eval_step = eval_step
+        self.loader_factory = loader_factory
+        self.logger = logger
+        self.tags = copy.deepcopy(list(tags))
+        self.device = device
+        self.event_capacity = event_capacity
+
+    def __call__(self, steps: int, samples: int):
+        validate(self.eval_step, self.loader_factory(), samples, self.logger,
+                 self.tags, self.device, event_capacity=self.event_capacity)

@@ -23,7 +23,15 @@ optax's semantics rather than with ``torch.optim``:
 - ``grad_clip_norm > 0`` clips the gradients of both groups together by
   their global norm before anything else, optax
   ``chain(clip_by_global_norm, multi_transform(...))``:
-  ``where(norm < max, g, g / norm * max)``.
+  ``where(norm < max, g, g / norm * max)``;
+- ``ema_decay > 0`` keeps an exponential moving average of the parameters
+  after each complete update (after the Lookahead jump on a sync step),
+  the JAX rider ``with_param_ema``: ``e = decay * e + (1 - decay) * p``,
+  starting as a copy of the parameters.
+
+The optimizer's state (counts, moments, Lookahead slow weights and the
+EMA) is keyed by parameter name in ``state_dict()``, so a checkpoint
+restores it exactly with ``load_state_dict()``.
 
 The per-step scalars (bias corrections, rectification, learning rate) are
 computed on the host in float32, so a step needs no device sync.
@@ -77,10 +85,21 @@ def _radam_scalars(count):
     return float(f(1) - b1t), float(f(1) - b2t), r
 
 
+def _copy_into(name, targets, saved):
+    """Copy the name-keyed tensors ``saved`` into ``targets`` in place;
+    the names must match exactly."""
+    if set(targets) != set(saved):
+        raise KeyError(f'{name}: saved state holds {sorted(saved)}, the '
+                       f'optimizer {sorted(targets)}')
+    for key, tensor in targets.items():
+        tensor.copy_(saved[key])
+
+
 class ParamGroup:
     """One optimizer chain over a list of parameters, with its own state.
 
     Args:
+        names: parameter names, which key the state in ``state_dict()``.
         params: parameters, updated in place.
         output_axes: output axis of each parameter for gradient
             centralisation, None for parameters it leaves alone.
@@ -90,10 +109,11 @@ class ParamGroup:
             centralisation + Lookahead around RAdam).
     """
 
-    def __init__(self, params, output_axes, schedule, weight_decay,
+    def __init__(self, names, params, output_axes, schedule, weight_decay,
                  kind='RANGER'):
         if kind not in KINDS:
             raise ValueError(f'unsupported optimizer {kind!r} ({KINDS})')
+        self.names = list(names)
         self.params = list(params)
         self.output_axes = list(output_axes)
         self.schedule = schedule
@@ -107,6 +127,29 @@ class ParamGroup:
                        if kind == 'ADAM' else None)
         self.slow = ([p.detach().clone() for p in self.params]
                      if self.ranger else None)
+
+    def state_dict(self) -> dict:
+        """``count`` and each state tensor by name: ``mu``, ``nu``, and
+        ``nu_max`` (ADAM) or ``slow`` (RANGER).  The tensors are the live
+        ones, not copies."""
+        state = {'count': self.count}
+        for key in ('mu', 'nu', 'nu_max', 'slow'):
+            tensors = getattr(self, key)
+            if tensors is not None:
+                state[key] = dict(zip(self.names, tensors))
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        keys = {k for k in ('mu', 'nu', 'nu_max', 'slow')
+                if getattr(self, k) is not None}
+        if set(state) != keys | {'count'}:
+            raise KeyError(f'saved group state holds {sorted(state)}, a '
+                           f'{self.kind} group {sorted(keys | {"count"})}')
+        for key in keys:
+            _copy_into(key, dict(zip(self.names, getattr(self, key))),
+                       state[key])
+        self.count = int(state['count'])
 
     def _centralize(self, g, axis):
         if not self.ranger or axis is None:
@@ -143,12 +186,21 @@ class ParamGroup:
 
 class Optimizer:
     """Named parameter groups updated together, one step per call, after
-    an optional clip of all gradients by their global norm (0 = off)."""
+    an optional clip of all gradients by their global norm (0 = off), and
+    followed by an optional parameter EMA (``ema_decay``, 0 = off)."""
 
-    def __init__(self, groups, names, clip_norm=0.0):
+    def __init__(self, groups, clip_norm=0.0, ema_decay=0.0):
         self.groups = groups          # {group name: ParamGroup}
-        self.names = names            # {group name: parameter names}
         self.clip_norm = float(clip_norm)
+        self.ema_decay = float(ema_decay)
+        self.ema = None               # {parameter name: EMA tensor}
+        if self.ema_decay > 0.0:
+            if not self.ema_decay < 1.0:
+                raise ValueError(f'the parameter EMA needs 0 < ema_decay < '
+                                 f'1, got {self.ema_decay}')
+            # a copy: the EMA must not alias the live parameters
+            self.ema = {n: p.detach().clone() for group in groups.values()
+                        for n, p in zip(group.names, group.params)}
 
     @torch.no_grad()
     def clip(self, grads):
@@ -163,8 +215,43 @@ class Optimizer:
         """Apply one update; ``grads`` maps parameter names to gradients."""
         if self.clip_norm > 0.0:
             grads = self.clip(grads)
+        for group in self.groups.values():
+            group.update([grads[name] for name in group.names])
+        if self.ema is not None:
+            self._update_ema()
+
+    @torch.no_grad()
+    def _update_ema(self):
+        # multi-tensor kernels: three launches a step, not three a parameter
+        params = [p for group in self.groups.values() for p in group.params]
+        ema = list(self.ema.values())
+        torch._foreach_mul_(ema, self.ema_decay)
+        torch._foreach_add_(ema, torch._foreach_mul(params,
+                                                    1.0 - self.ema_decay))
+
+    def state_dict(self) -> dict:
+        """``{'groups': {group: ParamGroup.state_dict()}}``, plus
+        ``'ema_params'`` (by parameter name) when the EMA is on.  The
+        tensors are the live ones, not copies."""
+        state = {'groups': {key: group.state_dict()
+                            for key, group in self.groups.items()}}
+        if self.ema is not None:
+            state['ema_params'] = dict(self.ema)
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        """Restore ``state_dict()`` output exactly, in place."""
+        if set(state['groups']) != set(self.groups):
+            raise KeyError(f'saved groups {sorted(state["groups"])}, the '
+                           f'optimizer\'s {sorted(self.groups)}')
+        if ('ema_params' in state) != (self.ema is not None):
+            raise KeyError('the saved state and the optimizer disagree on '
+                           'the parameter EMA (--ema-decay)')
         for key, group in self.groups.items():
-            group.update([grads[name] for name in self.names[key]])
+            group.load_state_dict(state['groups'][key])
+        if self.ema is not None:
+            _copy_into('ema_params', self.ema, state['ema_params'])
 
 
 def construct_optimizer(args, model) -> Optimizer:
@@ -174,25 +261,15 @@ def construct_optimizer(args, model) -> Optimizer:
     ``half_life``, ``num_warmup_steps``, ``training_steps`` and ``rs``;
     the representation group's schedule is delayed by
     ``training_steps * rs`` steps and, with
-    ``representation_warmup_steps``, ramped up after.  ``grad_clip_norm`` (0 or absent = off)
-    clips by global norm.  The parameter-EMA rider (``ema_decay``) is not
-    ported yet and is refused.
+    ``representation_warmup_steps``, ramped up after.  ``grad_clip_norm``
+    (0 or absent = off) clips by global norm; ``ema_decay`` (0 or absent =
+    off) keeps the parameter EMA.
     """
     name = args.optimizer.upper()
     if name not in KINDS:
         raise ValueError(f'unsupported optimizer {args.optimizer!r} '
                          f'({", ".join(KINDS)} are ported)')
-    if float(getattr(args, 'ema_decay', 0.0) or 0.0) > 0.0:
-        raise ValueError('the parameter-EMA rider (ema_decay) is not '
-                         'ported yet')
-    warmup = getattr(args, 'num_warmup_steps', 0)
-    delay = int(getattr(args, 'training_steps', 0) * getattr(args, 'rs', 0))
-    schedules = {
-        'representation': make_lr_schedule(
-            args.lr, warmup, args.half_life, delay_steps=delay,
-            rewarmup_steps=getattr(args, 'representation_warmup_steps', 0)),
-        'predictor': make_lr_schedule(args.lr, warmup, args.half_life),
-    }
+    schedules = _schedules(args)
     axes = model.output_axes()
     named = dict(model.named_parameters())
     names = {'representation': [], 'predictor': []}
@@ -200,9 +277,30 @@ def construct_optimizer(args, model) -> Optimizer:
         key = ('representation' if pname.startswith('quantization_layer.')
                else 'predictor')
         names[key].append(pname)
-    groups = {key: ParamGroup([named[n] for n in names[key]],
+    groups = {key: ParamGroup(names[key], [named[n] for n in names[key]],
                               [axes[n] for n in names[key]],
                               schedules[key], args.wdw, kind=name)
               for key in names}
-    return Optimizer(groups, names,
-                     float(getattr(args, 'grad_clip_norm', 0.0) or 0.0))
+    return Optimizer(groups,
+                     float(getattr(args, 'grad_clip_norm', 0.0) or 0.0),
+                     float(getattr(args, 'ema_decay', 0.0) or 0.0))
+
+
+def _schedules(args):
+    """The two groups' schedules: the representation group's delayed by
+    ``training_steps * rs`` steps."""
+    warmup = getattr(args, 'num_warmup_steps', 0)
+    delay = int(getattr(args, 'training_steps', 0) * getattr(args, 'rs', 0))
+    return {
+        'representation': make_lr_schedule(
+            args.lr, warmup, args.half_life, delay_steps=delay,
+            rewarmup_steps=getattr(args, 'representation_warmup_steps', 0)),
+        'predictor': make_lr_schedule(args.lr, warmup, args.half_life),
+    }
+
+
+def current_learning_rates(args, step: int):
+    """Both groups' learning rates at ``step`` for logging
+    (``General/learning rate/{i}``): the representation group first."""
+    schedules = _schedules(args)
+    return [schedules['representation'](step), schedules['predictor'](step)]

@@ -1,7 +1,8 @@
-"""Train state and the training step.
+"""Train state, the training step and the validation step.
 
-Counterpart of ``TrainState``, ``create_train_state``, ``make_loss_fn`` and
-``make_train_step`` in ``dvs_of_training_framework_tpu/training/state.py``.
+Counterpart of ``TrainState``, ``create_train_state``, ``make_loss_fn``,
+``make_train_step`` and ``make_eval_step`` in
+``dvs_of_training_framework_tpu/training/state.py``.
 PyTorch runs eagerly, so the step is a plain function: forward, the
 multi-scale loss, backward, and every ``accumulation_steps`` microbatches
 one optimizer update of the model's parameters in place.
@@ -79,3 +80,15 @@ def make_train_step(model, evaluator, optimizer, weights,
         return state, (loss.detach() * inv, terms)
 
     return step_fn
+
+
+def make_eval_step(model, evaluator, weights) -> Callable:
+    """Validation step: ``batch -> (loss, terms)`` with no autograd graph.
+    The parameters are the model's own."""
+    loss_fn = make_loss_fn(model, evaluator, weights)
+
+    def eval_step(batch):
+        with torch.no_grad():
+            return loss_fn(batch)
+
+    return eval_step

@@ -3,6 +3,10 @@
 - In a fresh interpreter, importing every module of the port and running
   one CPU training step of the golden configuration and one of the bf16
   recipe loads none of jax, flax or optax.
+- In a fresh interpreter where jax, flax, optax, h5py, yaml, psutil, tqdm
+  and msgpack cannot be imported (the card's machine lacks them), the
+  training CLI's ``run`` trains 2 steps on the CPU from an in-memory
+  loader, checkpointing, and a second ``run`` resumes and takes a third.
 - CPU tensors go to the plain twins and leave the launch counters alone.
 - On a CUDA card (tests marked ``cuda``; they skip without one) each
   kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, with
@@ -72,9 +76,71 @@ print('LOADED', loaded)
 '''
 
 
+LOOP = r'''
+import sys, tempfile
+for name in ('jax', 'flax', 'optax', 'h5py', 'yaml', 'psutil', 'tqdm',
+             'msgpack'):
+    sys.modules[name] = None          # import fails
+import numpy as np, torch
+from dvs_of_training_framework_tpu.utils.tb import SummaryWriter
+from dvs_of_training_framework_tpu_torch import train as cli
+from dvs_of_training_framework_tpu_torch.training.serializer import \
+    Serializer
+
+B, H, W = 2, 32, 32
+
+
+def collated(seed):
+    rng = np.random.default_rng(seed)
+    n = 100
+    return {
+        'events': {'x': rng.integers(0, W, n), 'y': rng.integers(0, H, n),
+                   'timestamp': rng.uniform(0, 0.04, n),
+                   'polarity': rng.choice([-1.0, 1.0], n),
+                   'element_index': np.zeros(n, int),
+                   'sample_index': np.sort(rng.integers(0, B, n))},
+        'timestamps': np.tile([0.0, 0.04], B),
+        'sample_idx': np.repeat(np.arange(B), 2),
+        'images': rng.uniform(0, 255, (2 * B, H, W)), 'size': B}
+
+
+def stream(samples_passed):
+    i = samples_passed // B
+    while True:
+        yield collated(i)
+        i += 1
+
+
+with tempfile.TemporaryDirectory() as out:
+    for steps in (2, 3):
+        args = cli.parse_args([
+            '-m', out, '-d', 'cpu', '-bs', str(B), '-mbs', str(B),
+            '-ne', str(steps), '--height', str(H), '--width', str(W),
+            '--event-capacity', '128', '--checkpointing_interval', '1',
+            '--permanent_interval', '1', '-vp', '2'])
+        _, _, state, samples = cli.run(
+            args, stream, lambda: [collated(100)],
+            SummaryWriter(out + '/log'))
+        assert (state.step, samples) == (steps, steps * B)
+    assert Serializer(out).list_known_steps() == [0, 1, 2, 3]
+print('LOADED', sorted(m for m in sys.modules
+                       if sys.modules[m] is not None and m.split('.')[0] in (
+                           'jax', 'flax', 'optax', 'h5py', 'yaml', 'psutil',
+                           'tqdm', 'msgpack')))
+'''
+
+
 def test_port_runs_a_step_without_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, '-c', STEP], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert 'LOADED []' in proc.stdout, proc.stdout
+
+
+def test_loop_checkpoints_and_resumes_without_missing_packages():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', LOOP], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert 'LOADED []' in proc.stdout, proc.stdout

@@ -115,9 +115,11 @@ def test_clip_by_global_norm_matches_optax():
 
 
 def test_ema_rider_is_refused():
+    """The EMA rider refuses a decay outside (0, 1), as the JAX package's
+    ``with_param_ema`` asserts."""
     model = evflownet.Model(event_representation_depth=4, base_channels=8)
     args = SimpleNamespace(optimizer='RANGER', lr=1e-2, wdw=1e-2,
-                           half_life=20, ema_decay=0.999)
+                           half_life=20, ema_decay=1.5)
     with pytest.raises(ValueError, match='EMA'):
         construct_optimizer(args, model)
 
