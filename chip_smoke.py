@@ -9,20 +9,33 @@ model with the ``bf16x2`` loss, whose warp takes its corners from K3.
 Phases:
 
 1. device: the card's name and power limit, then the nvcc build of the
-   kernels in ``dvs_of_training_framework_tpu_torch/csrc/``;
+   kernels in ``dvs_of_training_framework_tpu_torch/csrc/``, with each
+   kernel's registers, shared memory and spills, and the K2 kernels'
+   SASS instructions, tensor-core (HMMA) and special-function (MUFU)
+   ones apart, where the toolkit has ``cuobjdump`` (HMMA must not be 0);
 2. K1 (voxelize) against its plain twin on a bench batch, forward and
-   backward, with the device time of both; how many of 200 repeats of
-   the forward on one batch, with fp32 and with bf16 weights, equal the
-   first bit for bit (K1 adds with fp32 atomics); then K1 with bf16
-   weights against its twin;
+   backward; its device time beside the twin's, one PyTorch call's
+   (``index_put_(accumulate=True)`` forward, a gather backward) and the
+   bound; then, with fp32 and with bf16 weights, on the batch and on the
+   batch with 3000 events moved onto 3 hot pixels, 200 repeats of the
+   forward must equal the first grid bit for bit, and that grid the
+   twin's on the CPU (one thread: a serial add in event order); on each
+   of the two batches the forward's device time and device ops, beside
+   a stable argsort of the cell ids; then K1 with bf16 weights against
+   its twin;
 3. K2 (kernel-MLP) against its plain twin on delta [9, 2^17], forward and
-   the seven gradients, with the device time of both;
+   the seven gradients; both against a float64 evaluation, where the
+   kernel may err on each tensor by at most twice what the fp32 twin errs
+   (or 4 fp32 ulps of the tensor's scale); device times beside the
+   bounds, which count the products at the tensor cores' 3xTF32 rate and
+   each tanh as one special-function operation;
 4. K3 (warp corners) against its plain twin on the bench frames at the
    four loss scales, with flows reaching past the border and points at
    +-1e6 px: corners exactly, the warp's grid gradient, device times;
 5. one golden step through the kernels against one through the twins:
    the loss and the raw gradient of every parameter, before the
-   optimizer;
+   optimizer; then the same golden step twice from the same state under
+   ``cudnn.deterministic``, which must repeat bit for bit;
 6. the same for one recipe step;
 7. 3 warm-up and 10 timed golden steps on bench batches copied to the
    card each step, with the kernels' launch counters reset just before
@@ -48,14 +61,18 @@ Phases:
 13. the EMA export: ``finalize(use_ema=True)`` of checkpoint 12 equals
     the EMA of the optimizer state and loads into a fresh model.
 
-Prints the kernels as one JSON line, the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.  Any failure
-raises, so the exit code is not 0 and that line is not printed.
+Prints the kernels as one JSON line (each with its time, the twin's,
+one PyTorch call's where one computes the same function, its bound at
+the published H100 SXM peaks and its launches on the main path), the
+card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``.  Any failure raises, so the exit code is not 0 and
+that line is not printed.
 
 Usage (from the root of a checkout):  python3 chip_smoke.py
 """
 import importlib.util
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,17 +88,54 @@ import torch
 REPO = Path(__file__).resolve().parent
 WARMUP, STEPS = 3, 10
 TIMING_ITERS = 20
-REPEATS = 200       # K1 launches on one batch, for the atomics' order
+REPEATS = 200       # K1 launches on one batch that must repeat exactly
+HOT_EVENTS, HOT_CELLS = 3000, 3   # events moved onto a few hot pixels
+# published H100 SXM peaks (dense): fp32 outside the tensor cores, TF32 on
+# them, device memory; special-function (MUFU) results come 16 a clock an
+# SM against the 128 fp32 FMAs (256 flop) of the fp32 peak
+FP32_FLOPS, TF32_FLOPS, MEMORY_BYTES_S = 67e12, 495e12, 3.35e12
+SFU_OPS = FP32_FLOPS / 16
 LOSS_WEIGHTS = (0.5, 1, 1)
 CONFIGS = {'golden': ('float32', 'highest'), 'recipe': ('bfloat16', 'bf16x2')}
 KERNEL_SOURCE = 'dvs_of_training_framework_tpu_torch/csrc/'
 LOOP_STEPS, LOOP_EVERY, SKIP_AT = 12, 4, 2
-# JAX-package modules the port may load: the stdlib-only option groups
-# and TensorBoard writer that the CLI shares
-SHARED = {'dvs_of_training_framework_tpu',
-          'dvs_of_training_framework_tpu.utils',
-          'dvs_of_training_framework_tpu.utils.options',
-          'dvs_of_training_framework_tpu.utils.tb'}
+
+
+MLP_GRADS = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
+# 4 fp32 ulps of a tensor's largest magnitude: where the twin lands within
+# an ulp (db3, a plain sum over all points), twice its error would ask the
+# kernel for less than the one rounding its own result needs
+F64_FLOOR = 4 * 2.0 ** -23
+
+
+def kernel_mlp_f64(delta, w1, b1, w2, b2, w3, b3):
+    """K2's function as ``kernel_mlp_cuda.plain`` computes it, in the
+    inputs' own type (float64 here: the reference of both)."""
+    h = torch.tanh(delta.reshape(-1, 1) @ w1 + b1)
+    h = torch.tanh(h @ w2 + b2)
+    return (h @ w3 + b3).reshape(delta.shape)
+
+
+def check_against_float64(results):
+    """Raise unless, for the output and each of the seven gradients, the
+    kernel's largest error against float64 is at most twice the fp32
+    twin's, or at most F64_FLOOR; each error is taken relative to the
+    tensor's largest magnitude."""
+    print('  against float64, max abs err / max magnitude (kernel, twin, '
+          'ratio):')
+    failed = []
+    for i, oname in enumerate(['out'] + MLP_GRADS):
+        exact = results['float64'][i]
+        scale = exact.abs().max().item() or 1.0
+        errs = {k: max_abs(results[k][i].double(), exact) / scale
+                for k in ('kernel', 'plain')}
+        print(f'    {oname}: {errs["kernel"]:.3e}, {errs["plain"]:.3e}, '
+              f'{errs["kernel"] / max(errs["plain"], 1e-30):.2f}')
+        if errs['kernel'] > max(2 * errs['plain'], F64_FLOOR):
+            failed.append(oname)
+    if failed:
+        raise AssertionError(f'K2 errs by more than twice its fp32 twin on '
+                             f'{failed}')
 
 
 def card_line():
@@ -107,18 +161,20 @@ def device_ops(events):
 def device_ms(fn, iters=TIMING_ITERS):
     """Mean device time of ``fn()`` in ms after warm-up: the summed
     durations of the kernels it launches, from ``torch.profiler``, so
-    host and launch gaps between them do not count.  Where the profiler
-    records no device time, CUDA events around the loop stand in."""
+    host and launch gaps between them do not count.  The profiler now and
+    then records no device time; after three such tries CUDA events
+    around the loop stand in."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile() as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    busy_us = sum(e.device_time_total for e in device_ops(prof.events()))
-    if busy_us > 0:
-        return busy_us / iters / 1e3
+    for _ in range(3):
+        with profile() as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        busy_us = sum(e.device_time_total for e in device_ops(prof.events()))
+        if busy_us > 0:
+            return busy_us / iters / 1e3
     print('  (the profiler recorded no device time: CUDA events instead)')
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -130,12 +186,93 @@ def device_ms(fn, iters=TIMING_ITERS):
     return start.elapsed_time(end) / iters
 
 
-def time_pair(kernel_fn, plain_fn):
-    """(kernel ms, plain ms) of device time, in turns: plain, kernel,
-    kernel, plain."""
-    p1, k1, k2, p2 = (device_ms(f) for f in (plain_fn, kernel_fn, kernel_fn,
-                                             plain_fn))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def time_pair(kernel_fn, plain_fn, library_fn=None):
+    """(kernel ms, plain ms, library ms or None) of device time, in
+    turns: plain, kernel, library, library, kernel, plain."""
+    fns = [plain_fn, kernel_fn] + ([library_fn] if library_fn else [])
+    times = [device_ms(f) for f in fns + fns[::-1]]
+    means = [(a + b) / 2 for a, b in zip(times, times[::-1])]
+    return means[1], means[0], (means[2] if library_fn else None)
+
+
+def bound(nbytes=0.0, flops=0.0, mma_flops=0.0, sfu_ops=0.0):
+    """(ms, 'bytes' or 'operations', limiting unit): the least time the
+    card could take to move ``nbytes`` of device memory and to do
+    ``flops`` fp32 operations on the CUDA cores, ``mma_flops`` fp32
+    product operations on the tensor cores as 3xTF32 (three TF32 products
+    each) and ``sfu_ops`` special-function operations, at the published
+    peaks.  The units run side by side, so the slowest sets the bound."""
+    times = {'bytes': nbytes / MEMORY_BYTES_S, 'fp32': flops / FP32_FLOPS,
+             '3xTF32': 3 * mma_flops / TF32_FLOPS, 'MUFU': sfu_ops / SFU_OPS}
+    unit = max(times, key=times.get)
+    return (times[unit] * 1e3, 'bytes' if unit == 'bytes' else 'operations',
+            unit)
+
+
+def kernel_mlp_work(points, hd):
+    """``{'fwd': {...}, 'bwd': {...}}``: ``bound``'s keyword arguments
+    for K2 at ``points`` points and hidden size ``hd``.  Products: h1 W2
+    (2 hd^2 a point); the backward recomputes it and adds dh1 = dz2 W2^T
+    and dW2 += h1^T dz2.  Vector work: w1 d + b1 (2 hd), + b2 (hd),
+    w3 . h2 + b3 (2 hd + 1); backward also dz2 (3 hd), dw3 (2 hd), db2
+    (hd), dz1 (2 hd), d(delta) (2 hd), dw1 (2 hd), db1 (hd) and db3 (1).
+    Each tanh is one special-function operation (the least the card needs
+    for one), 2 hd a point both ways.  Bytes: delta and the output
+    (forward); delta, its cotangent and d(delta) (backward)."""
+    fwd = dict(flops=points * (5 * hd + 1), mma_flops=points * 2 * hd * hd,
+               sfu_ops=points * 2 * hd, nbytes=8 * points)
+    bwd = dict(flops=points * (18 * hd + 2), mma_flops=3 * fwd['mma_flops'],
+               sfu_ops=fwd['sfu_ops'], nbytes=12 * points)
+    return {'fwd': fwd, 'bwd': bwd}
+
+
+def sass_counts(lib_path):
+    """``{kernel: {'all': n, 'HMMA': n, 'MUFU': n}}``: the SASS
+    instructions of each kernel of the built library (tensor-core MMAs
+    and special-function operations apart), from cuobjdump, or None where
+    the toolkit has no cuobjdump."""
+    tool = shutil.which('cuobjdump')
+    if tool is None and Path('/usr/local/cuda/bin/cuobjdump').exists():
+        tool = '/usr/local/cuda/bin/cuobjdump'
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, '-sass', str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, function = {}, None
+    for line in sass.splitlines():
+        if 'Function :' in line:
+            function = line.split(':', 1)[1].strip()
+            counts[function] = {'all': 0, 'HMMA': 0, 'MUFU': 0}
+        elif function is not None and line.lstrip().startswith('/*') \
+                and '*/' in line and ';' in line:
+            counts[function]['all'] += 1
+            for op in ('HMMA', 'MUFU'):
+                counts[function][op] += op in line
+    return counts
+
+
+def device_parts(fn, iters=TIMING_ITERS):
+    """``[(us a call, device op)]`` of ``fn()``, busiest first."""
+    fn()
+    torch.cuda.synchronize()
+    with profile() as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sorted(((e.device_time_total / iters, e.key)
+                   for e in device_ops(prof.key_averages())), reverse=True)
+
+
+def one_thread_twin(fn, *args):
+    """``fn(*args)`` on the CPU copies of the tensors in ``args`` with
+    one intra-op thread, so that a CPU scatter adds in index order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args))
+    finally:
+        torch.set_num_threads(threads)
 
 
 def trace_steps(label, step_fn, state, batches, device, step_ms, top=12):
@@ -199,10 +336,16 @@ def import_bench():
     return bench
 
 
-def kernel_entry(name, source, replaces, err, k_ms, p_ms):
+def kernel_entry(name, source, replaces, err, times, bound_ms):
+    (k_ms, p_ms, lib_ms), (b_ms, b_kind, unit) = times, bound_ms
+    print(f'  {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library '
+          + ('none' if lib_ms is None else f'{lib_ms:.4f} ms')
+          + f'; bound {b_ms:.4f} ms ({b_kind}: {unit}), kernel at '
+          f'{100 * b_ms / k_ms:.1f}% of it')
     return {'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE + source,
             'replaces': 'dvs_of_training_framework_tpu/ops/' + replaces,
-            'max_abs_err': err, 'ms': k_ms, 'plain_ms': p_ms}
+            'max_abs_err': err, 'ms': k_ms, 'plain_ms': p_ms,
+            'bound_ms': b_ms, 'bound_by': b_kind, 'library_ms': lib_ms}
 
 
 def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol):
@@ -225,7 +368,7 @@ def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol):
           f'{loss_p:.7f} (rel {rel:.2e}, tol {loss_rtol:g})')
     if not rel <= loss_rtol:
         raise AssertionError(f'{label}: loss differs from the twin path')
-    worst = (0.0, '')
+    worst, bad = (0.0, ''), []
     for pname, want in grads_p.items():
         got = grads_k[pname]
         scale = want.abs().max().item()
@@ -233,15 +376,37 @@ def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol):
         worst = max(worst, (err / max(scale, 1e-12), pname))
         if not (torch.isfinite(got).all()
                 and err <= grad_tol * scale + 1e-9):
-            raise AssertionError(f'{label}: gradient of {pname} differs '
-                                 f'(max abs err {err:.3e}, leaf max '
-                                 f'{scale:.3e})')
+            bad.append(f'{pname} (max abs err {err:.3e}, leaf max '
+                       f'{scale:.3e})')
+    if bad:
+        raise AssertionError(f'{label}: gradients differ: ' + '; '.join(bad))
     print(f'  {len(grads_p)} parameter gradients agree; worst max-abs-err / '
           f'leaf-max {worst[0]:.2e} ({worst[1]}, tol {grad_tol:g})')
     qgrads = [pn for pn in grads_k if pn.startswith('quantization_layer.')]
     print('  quantization_layer gradients: ' + ', '.join(
         f'{pn.split(".", 1)[1]} {grads_k[pn].abs().max().item():.3e}'
         for pn in qgrads))
+
+
+def repeat_step(model, evaluator, batch):
+    """The same step twice from the same weights and batch, with only
+    cuDNN's deterministic algorithms: raises unless the loss and every raw
+    gradient repeat bit for bit."""
+    from dvs_of_training_framework_tpu_torch.training import make_loss_fn
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for _ in range(2):
+        loss, _ = make_loss_fn(model, evaluator, LOSS_WEIGHTS)(batch)
+        runs.append([loss.detach()] + list(torch.autograd.grad(
+            loss, list(model.parameters()))))
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    same = sum(bits_equal(a, b) for a, b in zip(*runs))
+    print(f'  the step repeated from the same state under cudnn.'
+          f'deterministic: the loss and {same - 1} of {len(runs[0]) - 1} '
+          'raw gradients equal bit for bit')
+    if same != len(runs[0]):
+        raise AssertionError('the golden step does not repeat bit for bit')
 
 
 def train(label, model, evaluator, host, device, card, counters):
@@ -378,9 +543,6 @@ def bits_equal(a, b):
 
 def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
     """Phases 11-13 in ``out``; returns phase 11's launch counts."""
-    from dvs_of_training_framework_tpu.utils.tb import (NullSummaryWriter,
-                                                         SummaryWriter,
-                                                         read_events)
     from dvs_of_training_framework_tpu_torch import train as cli
     from dvs_of_training_framework_tpu_torch.data import pad_batch
     from dvs_of_training_framework_tpu_torch.losses import (LOSS_PRECISIONS,
@@ -392,6 +554,8 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
     from dvs_of_training_framework_tpu_torch.training.serializer import (
         Serializer, read_params_file)
     from dvs_of_training_framework_tpu_torch.training.train import train
+    from dvs_of_training_framework_tpu_torch.utils.tb import (
+        NullSummaryWriter, SummaryWriter, read_events)
 
     B = collated[0]['size']
     good = collated[:LOOP_STEPS]
@@ -565,8 +729,8 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
              for name, want in uninterrupted.items()}
     # the card's spread is the largest run-to-run difference of any
     # parameter, as one pair of runs is too few to estimate it per
-    # parameter.  With cuDNN deterministic, as run() sets it, only K1's
-    # fp32 atomics can make it nonzero
+    # parameter.  With cuDNN deterministic, as run() sets it, and kernels
+    # that add in a fixed order, it is expected to be 0
     spread = max(d_ab for _, d_ab in diffs.values())
     worst_ru = max(d_ru for d_ru, _ in diffs.values())
     for name, (d_ru, d_ab) in diffs.items():
@@ -647,6 +811,17 @@ def main():
     for line in log.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             print('    ' + line.strip())
+    sass = sass_counts(lib_path)
+    if sass is None:
+        print('[1] cuobjdump not found: the HMMA count is not measured')
+    else:
+        mlp = {k: n for k, n in sass.items() if 'kernel_mlp_' in k
+               and ('_fwd_' in k or '_bwd_' in k)}
+        for k, n in mlp.items():
+            print(f'[1] {k}: {n["all"]} SASS instructions, {n["HMMA"]} '
+                  f'tensor-core (HMMA), {n["MUFU"]} special-function (MUFU)')
+        if len(mlp) != 2 or not all(n['HMMA'] for n in mlp.values()):
+            raise AssertionError('K2 does not run on the tensor cores')
 
     bench = import_bench()
     B, (H, W), capacity = bench.BATCH_SIZE, bench.IMSIZE, bench.CAPACITY
@@ -700,6 +875,21 @@ def main():
     err_b = check_close('backward', results['kernel'][1],
                         results['plain'][1], 1e-6, 1e-6)
 
+    # the yardsticks, one PyTorch call each, which the port never calls:
+    # index_put_ of the valid rows into the flat grid (the indices and
+    # values are prepared outside the timing); a gather of the twin's
+    # flat indices (an invalid row reads bin 0)
+    pix = (plane.long() * H + ev.y.long()) * W + ev.x.long()
+    flat = torch.where(valid[:, None],
+                       pix[:, None] * C + torch.arange(C, device=device), 0)
+    flat = flat.reshape(-1)
+    put_at = flat.view(capacity, C)[valid].reshape(-1)
+    put_values = w[valid].reshape(-1)
+
+    def index_put():
+        return torch.zeros(B * H * W * C, device=device).index_put_(
+            (put_at,), put_values, accumulate=True)
+
     def vox_fwd(fn):
         return lambda: fn(*vox_args, w, valid, B, H, W)
 
@@ -712,33 +902,75 @@ def main():
         return lambda: torch.autograd.grad(graphs[name], wg, g,
                                            retain_graph=True)
 
-    for suffix, err, (k_ms, p_ms), line in (
+    # bytes this batch needs: x, y, plane and valid of every row, the
+    # weights of the valid rows and every cell of the grid (forward);
+    # the same indices, the gradient at the cells the valid rows touch and
+    # every row of dw (backward)
+    n_valid = int(valid.sum())
+    n_cells = int(torch.unique(pix[valid]).numel())
+    index_bytes = 13 * capacity
+    grid_bytes = 4 * B * H * W * C
+    for suffix, err, times, nbytes, line in (
             ('fwd', err_f, time_pair(vox_fwd(voxel_cuda.voxelize),
-                                     vox_fwd(voxel_cuda.plain)), 272),
-            ('bwd', err_b, time_pair(vox_bwd('kernel'), vox_bwd('plain')),
-             324)):
-        print(f'  voxelize_{suffix}: kernel {k_ms:.4f} ms, plain '
-              f'{p_ms:.4f} ms')
+                                     vox_fwd(voxel_cuda.plain), index_put),
+             index_bytes + 4 * n_valid * C + grid_bytes, 272),
+            ('bwd', err_b, time_pair(vox_bwd('kernel'), vox_bwd('plain'),
+                                     lambda: g.view(-1)[flat]),
+             index_bytes + 4 * n_cells * C + 4 * capacity * C, 324)):
         kernels.append(kernel_entry(f'voxelize_{suffix}', 'voxelize.cu',
-                                    f'voxel_pallas.py:{line}', err, k_ms,
-                                    p_ms))
-    del graphs
+                                    f'voxel_pallas.py:{line}', err, times,
+                                    bound(nbytes=nbytes)))
+    del graphs, flat, put_at, put_values
 
-    # K1 adds with fp32 atomics, whose order the card does not fix: how
-    # often does the same batch give another grid?  With bf16 weights (the
-    # recipe's) most sums are exact in fp32, whatever their order
-    for weights in (w, w.bfloat16()):
-        first = voxel_cuda.voxelize(*vox_args, weights, valid, B, H, W)
-        same, worst = 0, 0.0
-        for _ in range(REPEATS):
-            grid = voxel_cuda.voxelize(*vox_args, weights, valid, B, H, W)
-            same += torch.equal(grid.view(torch.int32),
-                                first.view(torch.int32))
-            worst = max(worst, max_abs(grid, first))
-        print(f'  voxelize_fwd with {weights.dtype} weights repeated '
-              f'{REPEATS} times on one batch: {same} grids equal the first '
-              f'bit for bit, largest difference {worst:.3e}')
-    del first, grid
+    # K1's forward adds each cell in ascending event order: every launch
+    # on one batch gives the same grid, and that grid equals the twin's
+    # serial index_add on the CPU bit for bit.  Then the same with a few
+    # hot pixels, which take the kernel's path for crowded cells
+    hot_x, hot_y = ev.x.clone(), ev.y.clone()
+    spots = torch.arange(HOT_EVENTS, device=device) % HOT_CELLS
+    hot_x[:HOT_EVENTS], hot_y[:HOT_EVENTS] = spots, spots
+    for label, xy in (('the batch', (ev.x, ev.y)),
+                      (f'{HOT_EVENTS} events on {HOT_CELLS} hot pixels',
+                       (hot_x, hot_y))):
+        args = (*xy, plane)
+        crowd = torch.bincount(((plane.long() * H + xy[1].long()) * W
+                                + xy[0].long())[valid])
+        for weights in (w, w.bfloat16()):
+            first = voxel_cuda.voxelize(*args, weights, valid, B, H, W)
+            same = sum(
+                torch.equal(voxel_cuda.voxelize(*args, weights, valid, B, H,
+                                                 W).view(torch.int32),
+                            first.view(torch.int32))
+                for _ in range(REPEATS))
+            twin = one_thread_twin(voxel_cuda.plain, *args, weights, valid,
+                                   B, H, W)
+            exact = bits_equal(first, twin)
+            print(f'  voxelize_fwd on {label} (up to {crowd.max().item()} '
+                  f'events a cell), {weights.dtype} weights: {same} of '
+                  f'{REPEATS} repeats equal the first grid bit for bit; the '
+                  f'grid equals the CPU twin\'s bit for bit: {exact}')
+            if same != REPEATS or not exact:
+                raise AssertionError('K1 forward is not reproducible or '
+                                     'differs from its twin\'s order')
+        # K1's forward on this batch beside its twin and beside a stable
+        # argsort of the cell ids (invalid rows last), which would put each
+        # cell's events in ascending order in place of the placement pass,
+        # the per-cell sort and the hot-cell kernel
+        keys = torch.where(valid, (plane * H + xy[1]) * W + xy[0], B * H * W)
+        k_ms, p_ms, sort_ms = time_pair(
+            lambda: voxel_cuda.voxelize(*args, w, valid, B, H, W),
+            lambda: voxel_cuda.plain(*args, w, valid, B, H, W),
+            lambda: torch.sort(keys, stable=True))
+        parts = device_parts(
+            lambda: voxel_cuda.voxelize(*args, w, valid, B, H, W))
+        replaced = sum(us for us, key in parts
+                       if 'place_kernel' in key or 'hot_kernel' in key)
+        print(f'  voxelize_fwd on {label}: kernel {k_ms:.4f} ms, plain '
+              f'{p_ms:.4f} ms; stable argsort of the cell ids {sort_ms:.4f} '
+              f'ms against {replaced / 1e3:.4f} ms of placement and hot-cell '
+              f'kernels; by device op, us a call: ' + '; '.join(
+                  f'{us:.2f} {key[:48]}' for us, key in parts))
+    del first, twin, keys
 
     # the recipe's bf16 weights: the grid stays fp32, dw comes back in bf16
     results = vox_results(w.bfloat16())
@@ -763,23 +995,29 @@ def main():
     cot = torch.from_numpy(np.random.default_rng(4).normal(
         size=(C, capacity)).astype(np.float32)).to(device)
     results = {}
-    for name, fn in (('kernel', kernel_mlp_cuda.kernel_mlp),
-                     ('plain', kernel_mlp_cuda.plain)):
-        inputs = [t.clone().requires_grad_(True)
+    for name, fn, dtype in (('kernel', kernel_mlp_cuda.kernel_mlp,
+                             torch.float32),
+                            ('plain', kernel_mlp_cuda.plain, torch.float32),
+                            ('float64', kernel_mlp_f64, torch.float64)):
+        inputs = [t.to(dtype).clone().requires_grad_(True)
                   for t in [delta] + mlp_params]
         out = fn(*inputs)
-        grads = torch.autograd.grad(out, inputs, cot)
+        grads = torch.autograd.grad(out, inputs, cot.to(dtype))
         torch.cuda.synchronize()
-        results[name] = (out.detach(), grads)
+        results[name] = [out.detach()] + list(grads)
     print('[3] K2 kernel_mlp against its plain twin')
     err_f = check_close('forward', results['kernel'][0], results['plain'][0],
                         2e-6, 2e-6)
     err_b = 0.0
-    for gname, got, want in zip(['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3'],
-                                results['kernel'][1], results['plain'][1]):
+    for gname, got, want in zip(MLP_GRADS, results['kernel'][1:],
+                                results['plain'][1:]):
         scale = max(1.0, want.abs().max().item())
         err_b = max(err_b, check_close(f'd{gname}', got, want, 1e-5,
                                        1e-5 * scale))
+    # against float64: the tensor cores' 3xTF32 products keep fp32 accuracy
+    # when each tensor errs by at most twice the fp32 twin's error
+    check_against_float64(results)
+    del results
 
     def mlp_fwd(fn):
         return lambda: fn(delta, *mlp_params)
@@ -793,16 +1031,15 @@ def main():
         return lambda: torch.autograd.grad(graphs[name], params_g, cot,
                                            retain_graph=True)
 
-    for suffix, err, (k_ms, p_ms), line in (
+    work = kernel_mlp_work(delta.numel(), mlp_params[2].shape[0])
+    for suffix, err, times, line in (
             ('fwd', err_f, time_pair(mlp_fwd(kernel_mlp_cuda.kernel_mlp),
                                      mlp_fwd(kernel_mlp_cuda.plain)), 221),
             ('bwd', err_b, time_pair(mlp_bwd('kernel'), mlp_bwd('plain')),
              252)):
-        print(f'  kernel_mlp_{suffix}: kernel {k_ms:.4f} ms, plain '
-              f'{p_ms:.4f} ms')
         kernels.append(kernel_entry(f'kernel_mlp_{suffix}', 'kernel_mlp.cu',
                                     f'kernel_mlp_pallas.py:{line}', err,
-                                    k_ms, p_ms))
+                                    times, bound(**work[suffix])))
     del graphs, model
     torch.cuda.synchronize()
 
@@ -810,7 +1047,7 @@ def main():
     print('[4] K3 corner_values against its plain twin, bench frames')
     frames = host[0].to(device).images[1::2]        # the warped frames
     flow_rng = np.random.default_rng(5)
-    k_total = p_total = err_corners = 0.0
+    k_total = p_total = err_corners = corner_bytes = 0.0
     for S in (H // 8, H // 4, H // 2, H):
         frames = resize_bilinear(frames, (S, S))     # chained, as the loss
         base = torch.stack(torch.meshgrid(
@@ -848,17 +1085,19 @@ def main():
         print(f'  {S}x{S}: corners equal ({100 * outside:.2f}% zero)')
         check_close(f'{S}x{S} grid gradient', warped[False][1],
                     warped[True][1], 1e-4, 1e-4)
-        k_ms, p_ms = time_pair(
+        k_ms, p_ms, _ = time_pair(
             lambda: warp_cuda.corner_values(frames, iy, ix),
             lambda: warp.corner_values(frames, iy, ix))
         print(f'  {S}x{S}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms')
         k_total += k_ms
         p_total += p_ms
-    print(f'  corner_values, the four scales of a step: kernel '
-          f'{k_total:.4f} ms, plain {p_total:.4f} ms')
+        # the frames, the coordinates and the four corners of each point
+        corner_bytes += 4 * (frames.numel() + 2 * iy.numel() + got.numel())
+    print('  corner_values, the four scales of a step:')
     kernels.append(kernel_entry('corner_values', 'warp_corners.cu',
-                                'warp_pallas.py:126', err_corners, k_total,
-                                p_total))
+                                'warp_pallas.py:126', err_corners,
+                                (k_total, p_total, None),
+                                bound(nbytes=corner_bytes)))
     del frames, grid, iy, ix, got, want, warped
     torch.cuda.synchronize()
 
@@ -866,11 +1105,10 @@ def main():
     shapes = [(H // 2 ** i, W // 2 ** i) for i in range(4)][::-1]
     batch = host[0].to(device)
     # Golden: fp32 everywhere, so the two paths differ only in the kernels'
-    # summation order.  Recipe: K1's fp32 atomics add in another order and
-    # K2 differs from its twin by ~1e-8, so a few bf16 roundings of the
-    # grid and the MLP output fall the other way, and the bf16 network
-    # carries those flips to every gradient: loss 1e-3, gradients 5e-2 of
-    # the leaf's largest value.
+    # summation order.  Recipe: K2 differs from its twin by ~1e-8, so a few
+    # bf16 roundings of the MLP output fall the other way, and the bf16
+    # network carries those flips to every gradient: loss 1e-3, gradients
+    # 5e-2 of the leaf's largest value.
     for phase, config, loss_rtol, grad_tol in (('[5]', 'golden', 1e-5, 1e-4),
                                                ('[6]', 'recipe', 1e-3, 5e-2)):
         bf16x2 = LOSS_PRECISIONS[CONFIGS[config][1]]
@@ -883,6 +1121,8 @@ def main():
                       'plain': MultiScaleLoss(shapes, bf16x2=bf16x2,
                                               plain_ops=True)},
                      batch, loss_rtol, grad_tol)
+        if config == 'golden':
+            repeat_step(kernel_model, MultiScaleLoss(shapes), batch)
         del twin, kernel_model
     del batch
     torch.cuda.synchronize()
@@ -938,10 +1178,8 @@ def main():
         entry['loop_launches'] = launches['loop'][name]
         entry['golden_launches'] = launches['golden'][name]
 
-    jax_side = sorted(m for m in sys.modules
-                      if m.split('.')[0] in ('jax', 'flax', 'optax')
-                      or (m.split('.')[0] == 'dvs_of_training_framework_tpu'
-                          and m not in SHARED))
+    jax_side = sorted(m for m in sys.modules if m.split('.')[0] in (
+        'jax', 'flax', 'optax', 'dvs_of_training_framework_tpu'))
     if jax_side:
         raise AssertionError(f'the port loaded JAX-side modules: {jax_side}')
 

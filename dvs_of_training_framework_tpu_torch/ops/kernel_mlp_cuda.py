@@ -17,8 +17,6 @@ launches = {'fwd': 0, 'bwd': 0}
 
 MAX_HIDDEN = 32        # the kernel pads the hidden axis to this size
 _GRADS = 1153          # kernel_mlp_grad_size(): layout in csrc/kernel_mlp.cu
-_BWD_TILE = 128        # points per tile of the backward kernel
-_BWD_BLOCKS_PER_SM = 3  # kBwdBlocksPerSm: backward blocks an SM holds at once
 
 
 def plain(delta, w1, b1, w2, b2, w3, b3):
@@ -78,9 +76,9 @@ class _KernelMLP(torch.autograd.Function):
         g = g.contiguous().float()
         n = delta.numel()
         hd = w2.shape[0]
-        sms = torch.cuda.get_device_properties(
-            delta.device).multi_processor_count
-        blocks = min(-(-n // _BWD_TILE), _BWD_BLOCKS_PER_SM * sms)
+        blocks = lib.kernel_mlp_bwd_blocks(n)    # the rows of the partials
+        if blocks < 0:
+            _build.check(-blocks, 'kernel_mlp_bwd_blocks')
         d_delta = (torch.empty_like(delta) if ctx.needs_input_grad[0]
                    else None)
         partials = torch.empty((blocks, _GRADS), dtype=torch.float32,

@@ -5,9 +5,12 @@ Counterpart of ``voxelize_pallas`` in
 the same arguments as ``voxelize_scatter``, its plain twin.  A CUDA tensor
 always goes through the kernel, which raises on what it does not take; a
 CPU tensor goes to the twin.  Unlike the TPU kernel this one needs no
-plane-sorted events.  The weights are float32, or bfloat16 in the bf16
-recipe; the grid is float32 either way, and the weights' gradient comes
-back in the weights' dtype, as the JAX kernel returns it.
+plane-sorted events.  The forward adds each cell's events in ascending
+event order, as the twin does, so its grid is the same on every launch
+and equals the twin's on the CPU bit for bit.  The weights are float32,
+or bfloat16 in the bf16 recipe; the grid is float32 either way, and the
+weights' gradient comes back in the weights' dtype, as the JAX kernel
+returns it.
 """
 import torch
 
@@ -49,12 +52,26 @@ class _Voxelize(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y, plane, weights, valid, num_planes, height, width):
         E, C = weights.shape
-        out = torch.zeros((num_planes, height, width, C), dtype=torch.float32,
-                          device=weights.device)
-        stream = torch.cuda.current_stream(weights.device).cuda_stream
-        status = _build.library().voxelize_fwd(
+        device = weights.device
+        cells = num_planes * height * width
+        # the histogram of events per cell, then the hot-cell counter
+        counts = torch.zeros(cells + 1, dtype=torch.int32, device=device)
+        scratch = torch.empty(3 * E, dtype=torch.int32, device=device)
+        out = torch.empty((num_planes, height, width, C), dtype=torch.float32,
+                          device=device)
+        lib = _build.library()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = lib.voxelize_count(
+            x.data_ptr(), y.data_ptr(), plane.data_ptr(), valid.data_ptr(),
+            counts.data_ptr(), E, num_planes, height, width, stream)
+        _build.check(status, 'voxelize_count')
+        # each cell's range ends where the inclusive scan of the counts
+        # says: exact index preparation between the kernel's two steps
+        ends = torch.cumsum(counts[:cells], 0, dtype=torch.int32)
+        status = lib.voxelize_fwd(
             x.data_ptr(), y.data_ptr(), plane.data_ptr(), weights.data_ptr(),
-            valid.data_ptr(), out.data_ptr(), E, C, num_planes, height,
+            valid.data_ptr(), counts.data_ptr(), ends.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), E, C, num_planes, height,
             width, weights.dtype == torch.bfloat16, stream)
         _build.check(status, 'voxelize_fwd')
         launches['fwd'] += 1

@@ -25,11 +25,8 @@ import sys
 
 import torch
 
-from dvs_of_training_framework_tpu.utils.options import (
-    add_preprocessed_dataset_arguments, add_train_arguments,
-    validate_train_args)
-from dvs_of_training_framework_tpu.utils.tb import SummaryWriter
-
+from .data.dataloader import (choose_data_path, get_dataloader,
+                              get_trainset_params, get_valset_params)
 from .losses import LOSS_PRECISIONS, MultiScaleLoss
 from .models import Model
 from .training import (construct_optimizer, create_train_state,
@@ -38,6 +35,12 @@ from .training import (construct_optimizer, create_train_state,
 from .training.hooks import SerializationHook, ValidationHook
 from .training.serializer import Serializer, read_params_file
 from .training.train import make_hook_periodic, shapes2tags, train
+from .utils.common import (check_execution_info, collect_execution_info,
+                           write_execution_info)
+from .utils.options import (add_preprocessed_dataset_arguments,
+                            add_train_arguments, resolve_event_capacity,
+                            validate_train_args)
+from .utils.tb import SummaryWriter
 
 # (flag, whether the parsed arguments use it, ROADMAP queue 1 item)
 UNPORTED = (
@@ -130,8 +133,9 @@ def run(args, train_loader_factory, val_loader_factory, logger,
     # (700 W), over the bench batches, the recipe's steps after a resume
     # then equaled the uninterrupted run's bit for bit (without it they
     # differed by up to 6e-7), at a cost of ~30% of the recipe's device
-    # time, which its host-bound step hides, and 18-21% of golden's step.  The voxelization kernel's fp32 atomics still
-    # add in no fixed order; with fp32 weights its grids differ by ~1e-6
+    # time, which its host-bound step hides, and 18-21% of golden's step.
+    # The kernels add in a fixed order, so with this a step's gradients
+    # are the same on every run from the same state
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -193,15 +197,6 @@ def run(args, train_loader_factory, val_loader_factory, logger,
 
 def main(argv=None):
     args = parse_args(sys.argv[1:] if argv is None else argv)
-    # the dataset modules and the provenance need h5py and PyYAML
-    from dvs_of_training_framework_tpu.data.dataloader import (
-        choose_data_path, get_dataloader, get_trainset_params,
-        get_valset_params)
-    from dvs_of_training_framework_tpu.utils.common import (
-        check_execution_info, collect_execution_info, write_execution_info)
-    from dvs_of_training_framework_tpu.utils.options import \
-        resolve_event_capacity
-
     args = choose_data_path(args)
     args.model.mkdir(exist_ok=True, parents=True)
     args.log_path = args.model / 'log'

@@ -4,18 +4,32 @@ package's ``kernel_mlp_pallas`` in interpret mode.
 Tolerances are those of tests/ops/test_kernel_mlp.py: forward 2e-6
 (test_forward_matches_reference), the seven gradients 1e-5 * scale with
 scale = max(1, max|grad|) (:72-73, test_gradients_match_reference).
+
+On a card (the test marked ``cuda``) the kernel, whose products run on the
+tensor cores in 3xTF32, and the fp32 twin are both held against a float64
+evaluation: on the output and on each of the seven gradients the kernel's
+largest error, relative to the tensor's largest magnitude, may be at most
+twice the twin's, or 4 fp32 ulps where the twin lands within about one
+(db3, a plain sum over all points).  The card's machine has no JAX, so
+the JAX imports are optional there; run the card's test with
+``python -m pytest --noconftest -m cuda tests/test_torch_kernel_mlp.py``.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dvs_of_training_framework_tpu.ops.kernel_mlp_pallas import \
-    kernel_mlp_pallas
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from dvs_of_training_framework_tpu.ops.kernel_mlp_pallas import \
+        kernel_mlp_pallas
+except ModuleNotFoundError:     # a card's machine: the cuda test only
+    jax = None
 from dvs_of_training_framework_tpu_torch.ops import kernel_mlp_cuda
 
 NAMES = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
+F64_FLOOR = 4 * 2.0 ** -23   # 4 fp32 ulps of a tensor's scale
 
 
 def make_args(seed, shape, hd=30):
@@ -68,3 +82,38 @@ def test_wrapper_routes_cpu_tensors_to_twin():
     got = kernel_mlp_cuda.kernel_mlp(*args)
     assert torch.equal(got, kernel_mlp_cuda.plain(*args))
     assert kernel_mlp_cuda.launches == before
+
+
+def twin_in_float64(delta, w1, b1, w2, b2, w3, b3):
+    """The twin's function in the inputs' own type (here float64)."""
+    h = torch.tanh(delta.reshape(-1, 1) @ w1 + b1)
+    h = torch.tanh(h @ w2 + b2)
+    return (h @ w3 + b3).reshape(delta.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hd', [30, 17])
+def test_kernel_keeps_fp32_accuracy(hd):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = make_args(4, (9, 40001), hd)
+    cot = np.random.default_rng(5).normal(size=(9, 40001))
+    results = {}
+    for name, fn, dtype in (
+            ('kernel', kernel_mlp_cuda.kernel_mlp, torch.float32),
+            ('twin', kernel_mlp_cuda.plain, torch.float32),
+            ('float64', twin_in_float64, torch.float64)):
+        ts = [torch.from_numpy(a).to('cuda', dtype).requires_grad_(True)
+              for a in args]
+        out = fn(*ts)
+        grads = torch.autograd.grad(out, ts, torch.from_numpy(cot).to(
+            'cuda', dtype))
+        results[name] = [t.detach().double().cpu() for t in (out, *grads)]
+    for tname, kernel, twin, exact in zip(['out'] + NAMES, results['kernel'],
+                                          results['twin'],
+                                          results['float64']):
+        scale = exact.abs().max().item()
+        err_k, err_t = ((g - exact).abs().max().item() / scale
+                        for g in (kernel, twin))
+        assert err_k <= max(2 * err_t, F64_FLOOR), (tname, err_k, err_t)

@@ -1,12 +1,14 @@
 """The port stands without JAX, and its kernel wrappers route by device.
 
-- In a fresh interpreter, importing every module of the port and running
-  one CPU training step of the golden configuration and one of the bf16
-  recipe loads none of jax, flax or optax.
-- In a fresh interpreter where jax, flax, optax, h5py, yaml, psutil, tqdm
-  and msgpack cannot be imported (the card's machine lacks them), the
-  training CLI's ``run`` trains 2 steps on the CPU from an in-memory
-  loader, checkpointing, and a second ``run`` resumes and takes a third.
+Both subprocess checks below run in a fresh interpreter where jax, flax,
+optax, h5py, yaml, psutil, tqdm and msgpack cannot be imported (the card's
+machine lacks them), and fail if any module of the JAX package
+(``dvs_of_training_framework_tpu``, the port aside) was loaded:
+
+- importing every module of the port and running one CPU training step of
+  the golden configuration and one of the bf16 recipe;
+- the training CLI's ``run`` training 2 steps on the CPU from an in-memory
+  loader, checkpointing, and a second ``run`` resuming and taking a third.
 - CPU tensors go to the plain twins and leave the launch counters alone.
 - On a CUDA card (tests marked ``cuda``; they skip without one) each
   kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, with
@@ -33,8 +35,24 @@ from dvs_of_training_framework_tpu_torch.ops import (kernel_mlp_cuda,
 
 REPO = Path(__file__).resolve().parents[1]
 
-STEP = r'''
-import importlib, pkgutil, sys, types
+# imports fail for these; the scripts print what of them and of the JAX
+# package was loaded
+BLOCK = r'''
+import sys
+BLOCKED = ('jax', 'flax', 'optax', 'h5py', 'yaml', 'psutil', 'tqdm',
+           'msgpack')
+for name in BLOCKED:
+    sys.modules[name] = None          # import fails
+
+
+def loaded():
+    watched = BLOCKED + ('dvs_of_training_framework_tpu',)
+    return sorted(m for m in sys.modules if sys.modules[m] is not None
+                  and m.split('.')[0] in watched)
+'''
+
+STEP = BLOCK + r'''
+import importlib, pkgutil, types
 import numpy as np, torch
 import dvs_of_training_framework_tpu_torch as port
 for info in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):
@@ -71,21 +89,17 @@ for dtype, bf16x2 in (('float32', False), ('bfloat16', True)):
     state, (loss, _) = step(create_train_state(),
                             pad_batch(collated, 64).to('cpu'))
     assert state.step == 1 and torch.isfinite(loss)
-loaded = sorted(m for m in ('jax', 'flax', 'optax') if m in sys.modules)
-print('LOADED', loaded)
+print('LOADED', loaded())
 '''
 
 
-LOOP = r'''
-import sys, tempfile
-for name in ('jax', 'flax', 'optax', 'h5py', 'yaml', 'psutil', 'tqdm',
-             'msgpack'):
-    sys.modules[name] = None          # import fails
+LOOP = BLOCK + r'''
+import tempfile
 import numpy as np, torch
-from dvs_of_training_framework_tpu.utils.tb import SummaryWriter
 from dvs_of_training_framework_tpu_torch import train as cli
 from dvs_of_training_framework_tpu_torch.training.serializer import \
     Serializer
+from dvs_of_training_framework_tpu_torch.utils.tb import SummaryWriter
 
 B, H, W = 2, 32, 32
 
@@ -123,10 +137,7 @@ with tempfile.TemporaryDirectory() as out:
             SummaryWriter(out + '/log'))
         assert (state.step, samples) == (steps, steps * B)
     assert Serializer(out).list_known_steps() == [0, 1, 2, 3]
-print('LOADED', sorted(m for m in sys.modules
-                       if sys.modules[m] is not None and m.split('.')[0] in (
-                           'jax', 'flax', 'optax', 'h5py', 'yaml', 'psutil',
-                           'tqdm', 'msgpack')))
+print('LOADED', loaded())
 '''
 
 

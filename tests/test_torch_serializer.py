@@ -151,7 +151,21 @@ def all_tensors(model, optimizer):
     return out
 
 
-def test_resume_restores_optimizer_state(tmp_path):
+@pytest.fixture
+def one_torch_thread():
+    """A CPU step's bits depend on how many threads split its reductions
+    (the kernel-MLP's bias gradients, the convolutions' weight gradients):
+    8 threads against 3, 5 or 1 change most of the trained tensors.  Under
+    parallel test workers a parallel region need not get the threads it
+    asks for, so the two runs of the resume test could split differently.
+    One intra-op thread fixes the split."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_resume_restores_optimizer_state(tmp_path, one_torch_thread):
     """3 steps, a checkpoint, fresh objects, a load and 3 more steps equal
     6 straight steps bit for bit (parameters, moments, slow weights, EMA,
     counts)."""

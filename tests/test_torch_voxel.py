@@ -5,16 +5,28 @@ Tolerances are those of tests/ops/test_voxel_pallas.py: forward 1e-5
 (:36, test_forward_matches_scatter), weight gradients 1e-3 (:68,
 test_vjp_matches_scatter), and for bf16 weights a forward at 1e-5 with a
 bf16 weight gradient at 1e-2 (test_bf16_weights_single_pass).
+
+The twin adds each bin's contributions in ascending event order, bit for
+bit as a Python loop does, and the card's K1 is held to that order: on a
+card (tests marked ``cuda``) its grid repeats exactly and equals the
+twin's on the CPU.  The card's machine has no JAX, so the JAX imports are
+optional there; run the card's tests with ``python -m pytest --noconftest
+-m cuda tests/test_torch_voxel.py``.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dvs_of_training_framework_tpu.ops.voxel import \
-    voxelize_scatter as jax_scatter
-from dvs_of_training_framework_tpu.ops.voxel_pallas import voxelize_pallas
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from dvs_of_training_framework_tpu.ops.voxel import \
+        voxelize_scatter as jax_scatter
+    from dvs_of_training_framework_tpu.ops.voxel_pallas import \
+        voxelize_pallas
+except ModuleNotFoundError:     # a card's machine: the cuda tests only
+    jax = None
 from dvs_of_training_framework_tpu_torch.ops import voxel_cuda
 from dvs_of_training_framework_tpu_torch.ops.voxel import voxelize_scatter
 
@@ -127,3 +139,67 @@ def test_wrapper_routes_cpu_tensors_to_twin():
     want = voxelize_scatter(*case)
     assert torch.equal(got, want)
     assert voxel_cuda.launches == before
+
+
+def crowded_case(seed, E=600, P=2, H=3, W=4, C=5):
+    """Many events in a few cells (up to ~100 a cell), rows in no order,
+    a tenth of them invalid, weights over six decades so that the order
+    of the adds shows in the bits."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, W, E).astype(np.int32)
+    y = rng.integers(0, H, E).astype(np.int32)
+    plane = rng.integers(0, P, E).astype(np.int32)
+    weights = (rng.normal(size=(E, C))
+               * 10.0 ** rng.integers(-3, 3, (E, 1))).astype(np.float32)
+    valid = rng.uniform(size=E) > 0.1
+    return x, y, plane, weights, valid, P, H, W
+
+
+def event_order_sum(x, y, plane, weights, valid, P, H, W):
+    """The grid as a float32 loop over the events in ascending order."""
+    grid = np.zeros((P, H, W, weights.shape[1]), np.float32)
+    for e in np.flatnonzero(valid):
+        grid[plane[e], y[e], x[e]] += weights[e]
+    return grid
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('seed', [0, 1])
+def test_twin_adds_in_event_order(seed, dtype):
+    x, y, plane, weights, valid, P, H, W = crowded_case(seed)
+    w = torch.from_numpy(weights).to(dtype)
+    want = event_order_sum(x, y, plane, w.float().numpy(), valid, P, H, W)
+    got = voxelize_scatter(*(torch.from_numpy(a) for a in (x, y, plane)), w,
+                           torch.from_numpy(valid), P, H, W)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    # the order matters at these magnitudes: the reverse order differs
+    rev = slice(None, None, -1)
+    backwards = event_order_sum(x[rev], y[rev], plane[rev],
+                                w.float().numpy()[rev], valid[rev], P, H, W)
+    assert not np.array_equal(backwards, want)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_kernel_repeats_and_equals_the_cpu_twin(cuda, dtype):
+    """Crowded cells (the kernel's list of hot cells) and sparse ones:
+    20 launches give the same grid, bit for bit the twin's on the CPU."""
+    x, y, plane, weights, valid, P, H, W = crowded_case(2, E=40000, P=8,
+                                                        H=40, W=50)
+    x[:3000], y[:3000] = 7, 9                   # one pixel of 3000 events
+    inputs = [torch.from_numpy(a) for a in (x, y, plane, weights, valid)]
+    inputs[3] = inputs[3].to(dtype)
+    want = voxelize_scatter(*inputs, P, H, W)
+    on_card = [t.to(cuda) for t in inputs]
+    grids = [voxel_cuda.voxelize(*on_card, P, H, W) for _ in range(20)]
+    torch.cuda.synchronize()
+    for grid in grids:
+        assert torch.equal(grid.cpu().view(torch.int32),
+                           want.view(torch.int32))
