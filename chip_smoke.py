@@ -2,10 +2,12 @@
 """Smoke test of the PyTorch port on one CUDA card (an H100).
 
 Drives the port's two EVFlowNet training configurations at the full width
-that ``bench.py`` times: base 64, depth 9, 256x256, batch 8, event
-capacity 2^17, RANGER at lr 1e-3, loss weights (0.5, 1, 1).  "Golden" is
+of the repo's benchmark: base 64, depth 9, 256x256, batch 8, event
+capacity 2^17, RANGER at lr 1e-3, loss weights (0.5, 1, 1), on batches
+from the port's copy of the benchmark's batch maker
+(``dvs_of_training_framework_tpu_torch/data/synthetic.py``).  "Golden" is
 fp32 with TF32 off and the ``F.grid_sample`` warp; "recipe" is the bf16
-model with the ``bf16x2`` loss, whose warp takes its corners from K3.
+model with the ``bf16x2`` loss, whose warp runs as K3's fused kernels.
 Phases:
 
 1. device: the card's name and power limit, then the nvcc build of the
@@ -20,8 +22,8 @@ Phases:
    batch with 3000 events moved onto 3 hot pixels, 200 repeats of the
    forward must equal the first grid bit for bit, and that grid the
    twin's on the CPU (one thread: a serial add in event order); on each
-   of the two batches the forward's device time and device ops, beside
-   a stable argsort of the cell ids; then K1 with bf16 weights against
+   of the two batches the forward's device time and its device ops,
+   each with its time and launches; then K1 with bf16 weights against
    its twin;
 3. K2 (kernel-MLP) against its plain twin on delta [9, 2^17], forward and
    the seven gradients; both against a float64 evaluation, where the
@@ -29,9 +31,16 @@ Phases:
    (or 4 fp32 ulps of the tensor's scale); device times beside the
    bounds, which count the products at the tensor cores' 3xTF32 rate and
    each tanh as one special-function operation;
-4. K3 (warp corners) against its plain twin on the bench frames at the
-   four loss scales, with flows reaching past the border and points at
-   +-1e6 px: corners exactly, the warp's grid gradient, device times;
+4. K3 on the bench frames at the four loss scales, with smooth flows
+   reaching past the border and points at +-1e6 px, the grid a permuted
+   [N, 2, H, W] view as the loss makes it: the corner gather
+   (``warp_corners``) exactly against its twin; the fused warp
+   (``warp_fwd``, ``warp_bwd``) against the corner twin's warp, values
+   to 1e-5 and the grid gradient to 1e-4; per scale and summed, the
+   fused kernels' device time beside the twin's, ``F.grid_sample``'s
+   and the bound; and the device ops of one warp forward and backward
+   through K3's corner gather and plain ops (the route before the
+   fusion) and through the fused kernels;
 5. one golden step through the kernels against one through the twins:
    the loss and the raw gradient of every parameter, before the
    optimizer; then the same golden step twice from the same state under
@@ -43,8 +52,9 @@ Phases:
    cuDNN's default algorithms, with only its deterministic ones (as the
    CLI's ``run()`` sets), deterministic again and default again;
 8. two more golden steps under ``torch.profiler`` with each setting:
-   device busy time a step and the busiest device ops;
-9. and 10. phases 7 and 8 for the recipe (K3 four times a step);
+   device busy time and device ops a step, and the busiest ops;
+9. and 10. phases 7 and 8 for the recipe (the fused warp's forward and
+   backward four times a step each, the lone corner gather never);
 11. the training loop through the CLI's ``run()`` with the production
     recipe (bf16, ``bf16x2``, bs 8, lr 1e-3, half-life 20000, 200 warm-up
     steps, clip 1.0, EMA 0.999): 12 steps over an in-memory stream of
@@ -70,7 +80,6 @@ that line is not printed.
 
 Usage (from the root of a checkout):  python3 chip_smoke.py
 """
-import importlib.util
 import json
 import shutil
 import statistics
@@ -78,12 +87,12 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 WARMUP, STEPS = 3, 10
@@ -252,15 +261,22 @@ def sass_counts(lib_path):
 
 
 def device_parts(fn, iters=TIMING_ITERS):
-    """``[(us a call, device op)]`` of ``fn()``, busiest first."""
+    """``[(us a call, launches a call, device op)]`` of ``fn()``, busiest
+    first; three tries, as the profiler now and then records no device
+    op."""
     fn()
     torch.cuda.synchronize()
-    with profile() as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sorted(((e.device_time_total / iters, e.key)
-                   for e in device_ops(prof.key_averages())), reverse=True)
+    for _ in range(3):
+        with profile() as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        parts = sorted(((e.device_time_total / iters, e.count / iters, e.key)
+                        for e in device_ops(prof.key_averages())),
+                       reverse=True)
+        if parts:
+            return parts
+    raise AssertionError('the profiler recorded no device op in 3 tries')
 
 
 def one_thread_twin(fn, *args):
@@ -291,8 +307,10 @@ def trace_steps(label, step_fn, state, batches, device, step_ms, top=12):
     if busy_ms == 0:
         print(f'{label} the profiler recorded no device time: not measured')
         return
+    n_ops = sum(e.count for e in ops) / len(batches)
     print(f'{label} traced {len(batches)} steps: device busy {busy_ms:.3f} '
-          f'ms a step, {100 * (1 - busy_ms / step_ms):.1f}% idle in the '
+          f'ms and {n_ops:g} device ops a step, '
+          f'{100 * (1 - busy_ms / step_ms):.1f}% idle in the '
           f'{step_ms:.3f} ms step ({wall_ms:.3f} ms a step under the '
           f'profiler)')
     for e in sorted(ops, key=lambda e: -e.device_time_total)[:top]:
@@ -316,24 +334,6 @@ def check_close(name, got, want, rtol, atol):
         raise AssertionError(f'{name}: kernel and twin disagree '
                              f'(max abs err {err:.3e})')
     return err
-
-
-def import_bench():
-    """``bench`` for its batch maker.  ``scripts/make_synthetic_mvsec.py``
-    imports h5py at its top but never uses it to simulate; where h5py is
-    missing a placeholder module stands in for that one import."""
-    placeholder = importlib.util.find_spec('h5py') is None
-    if placeholder:
-        sys.modules['h5py'] = types.ModuleType('h5py')
-        print('h5py: not installed; a placeholder module stands in for the '
-              'unused import in scripts/make_synthetic_mvsec.py')
-    try:
-        import bench
-        import scripts.make_synthetic_mvsec  # noqa: F401
-    finally:
-        if placeholder:
-            del sys.modules['h5py']
-    return bench
 
 
 def kernel_entry(name, source, replaces, err, times, bound_ms):
@@ -637,7 +637,8 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
     forwards = LOOP_STEPS + 5 * len(val)
     expected = {'voxelize_fwd': forwards, 'voxelize_bwd': LOOP_STEPS,
                 'kernel_mlp_fwd': forwards, 'kernel_mlp_bwd': LOOP_STEPS,
-                'corner_values': 4 * forwards}
+                'corner_values': 0, 'warp_fwd': 4 * forwards,
+                'warp_bwd': 4 * LOOP_STEPS}
     print(f'  launches: {counts}')
     if counts != expected:
         raise AssertionError(f'loop: launches {counts}, expected {expected}')
@@ -780,7 +781,7 @@ def main():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.data import pad_batch, synthetic
     from dvs_of_training_framework_tpu_torch.losses import (
         LOSS_PRECISIONS, MultiScaleLoss)
     from dvs_of_training_framework_tpu_torch.models import Model
@@ -793,7 +794,9 @@ def main():
                 'voxelize_bwd': (voxel_cuda.launches, 'bwd'),
                 'kernel_mlp_fwd': (kernel_mlp_cuda.launches, 'fwd'),
                 'kernel_mlp_bwd': (kernel_mlp_cuda.launches, 'bwd'),
-                'corner_values': (warp_cuda.launches, 'fwd')}
+                'corner_values': (warp_cuda.launches, 'corners'),
+                'warp_fwd': (warp_cuda.launches, 'fwd'),
+                'warp_bwd': (warp_cuda.launches, 'bwd')}
 
     # --- 1. device and build ---------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -823,12 +826,12 @@ def main():
         if len(mlp) != 2 or not all(n['HMMA'] for n in mlp.values()):
             raise AssertionError('K2 does not run on the tensor cores')
 
-    bench = import_bench()
-    B, (H, W), capacity = bench.BATCH_SIZE, bench.IMSIZE, bench.CAPACITY
+    B, (H, W) = synthetic.BATCH_SIZE, synthetic.IMSIZE
+    capacity = synthetic.CAPACITY
     rng = np.random.default_rng(0)
     # the first WARMUP + STEPS batches feed phases 5-10 and the loop, the
     # last two the loop's validation
-    collated = [bench.make_collated(rng, sample_offset=i * B)
+    collated = [synthetic.make_collated(rng, sample_offset=i * B)
                 for i in range(WARMUP + STEPS + 2)]
     host = [pad_batch(c, capacity) for c in collated[:WARMUP + STEPS]]
     n_events = host[0].events.num_events
@@ -952,25 +955,17 @@ def main():
             if same != REPEATS or not exact:
                 raise AssertionError('K1 forward is not reproducible or '
                                      'differs from its twin\'s order')
-        # K1's forward on this batch beside its twin and beside a stable
-        # argsort of the cell ids (invalid rows last), which would put each
-        # cell's events in ascending order in place of the placement pass,
-        # the per-cell sort and the hot-cell kernel
-        keys = torch.where(valid, (plane * H + xy[1]) * W + xy[0], B * H * W)
-        k_ms, p_ms, sort_ms = time_pair(
+        # K1's forward on this batch beside its twin, and its device ops
+        k_ms, p_ms, _ = time_pair(
             lambda: voxel_cuda.voxelize(*args, w, valid, B, H, W),
-            lambda: voxel_cuda.plain(*args, w, valid, B, H, W),
-            lambda: torch.sort(keys, stable=True))
+            lambda: voxel_cuda.plain(*args, w, valid, B, H, W))
         parts = device_parts(
             lambda: voxel_cuda.voxelize(*args, w, valid, B, H, W))
-        replaced = sum(us for us, key in parts
-                       if 'place_kernel' in key or 'hot_kernel' in key)
         print(f'  voxelize_fwd on {label}: kernel {k_ms:.4f} ms, plain '
-              f'{p_ms:.4f} ms; stable argsort of the cell ids {sort_ms:.4f} '
-              f'ms against {replaced / 1e3:.4f} ms of placement and hot-cell '
-              f'kernels; by device op, us a call: ' + '; '.join(
-                  f'{us:.2f} {key[:48]}' for us, key in parts))
-    del first, twin, keys
+              f'{p_ms:.4f} ms; {sum(n for _, n, _ in parts):g} device ops a '
+              'call (us, launches): ' + '; '.join(
+                  f'{us:.2f} x{n:g} {key[:48]}' for us, n, key in parts))
+    del first, twin
 
     # the recipe's bf16 weights: the grid stays fp32, dw comes back in bf16
     results = vox_results(w.bfloat16())
@@ -1044,25 +1039,40 @@ def main():
     torch.cuda.synchronize()
 
     # --- 4. K3 against its twin ------------------------------------------
-    print('[4] K3 corner_values against its plain twin, bench frames')
+    print('[4] K3 on the bench frames: the corner gather, then the fused '
+          'warp against the corner twin\'s warp')
     frames = host[0].to(device).images[1::2]        # the warped frames
     flow_rng = np.random.default_rng(5)
-    k_total = p_total = err_corners = corner_bytes = 0.0
+    err_corners = err_fwd = err_bwd = 0.0
+    sums = {k: [0.0, 0.0, 0.0, 0.0] for k in ('corners', 'fwd', 'bwd')}
+    per_scale = {'fwd': [], 'bwd': []}
+    routes = {'fused': warp_cuda.grid_sample_onehot,
+              'plain': warp.grid_sample_corners,
+              'unfused': lambda f, g: warp.grid_sample_corners(
+                  f, g, warp_cuda.corner_values),
+              'library': lambda f, g: F.grid_sample(
+                  f, g, mode='bilinear', padding_mode='zeros',
+                  align_corners=True)}
     for S in (H // 8, H // 4, H // 2, H):
         frames = resize_bilinear(frames, (S, S))     # chained, as the loss
         base = torch.stack(torch.meshgrid(
             torch.arange(S, dtype=torch.float32),
             torch.arange(S, dtype=torch.float32), indexing='xy'))
-        # flows of S/8 px carry points past the border; 4 points a frame
-        # at +-1e6 px
-        flow = torch.from_numpy(flow_rng.normal(
-            0.0, S / 8, (B, 2, S, S)).astype(np.float32))
+        # a smooth flow, as a flow network predicts it (a coarse random
+        # field of S/8 px upsampled, and 0.5 px of noise a point), carries
+        # points past the border; 4 points a frame at +-1e6 px
+        coarse = torch.from_numpy(flow_rng.normal(
+            0.0, S / 8, (B, 2, 8, 8)).astype(np.float32))
+        flow = F.interpolate(coarse, size=(S, S), mode='bilinear',
+                             align_corners=True) + torch.from_numpy(
+            flow_rng.normal(0.0, 0.5, (B, 2, S, S)).astype(np.float32))
         flow[:, 0, 0, :4] = torch.tensor([1e6, -1e6, 0.0, 0.0])
         flow[:, 1, 0, :4] = torch.tensor([0.0, 0.0, 1e6, -1e6])
-        grid = (base[None] + flow) / ((S - 1) / 2.0) - 1.0
-        grid = grid.permute(0, 2, 3, 1).contiguous().to(device)
+        # [N, 2, S, S], read through its [N, S, S, 2] view, as the loss does
+        grid = ((base[None] + flow) / ((S - 1) / 2.0) - 1.0).to(device)
+        view = grid.permute(0, 2, 3, 1)
         iy, ix = (t.contiguous() for t in
-                  warp._unnormalize(grid.reshape(B, S * S, 2), S, S))
+                  warp._unnormalize(view.reshape(B, S * S, 2), S, S))
         got = warp_cuda.corner_values(frames, iy, ix)
         want = warp.corner_values(frames, iy, ix)
         torch.cuda.synchronize()
@@ -1073,32 +1083,87 @@ def main():
         outside = (got == 0).float().mean().item()
         cot = torch.randn(B, 1, S, S, device=device,
                           generator=torch.Generator(device).manual_seed(S))
-        warped = {}
-        for plain_ops in (False, True):
-            gr = grid.clone().requires_grad_(True)
-            out = warp.grid_sample_onehot(frames, gr, True, plain_ops)
-            (dgrid,) = torch.autograd.grad(out, gr, cot)
-            torch.cuda.synchronize()
-            warped[plain_ops] = (out.detach(), dgrid)
-        if not torch.equal(warped[False][0], warped[True][0]):
-            raise AssertionError(f'K3 at {S}x{S}: warped frames differ')
-        print(f'  {S}x{S}: corners equal ({100 * outside:.2f}% zero)')
-        check_close(f'{S}x{S} grid gradient', warped[False][1],
-                    warped[True][1], 1e-4, 1e-4)
-        k_ms, p_ms, _ = time_pair(
-            lambda: warp_cuda.corner_values(frames, iy, ix),
-            lambda: warp.corner_values(frames, iy, ix))
-        print(f'  {S}x{S}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms')
-        k_total += k_ms
-        p_total += p_ms
-        # the frames, the coordinates and the four corners of each point
-        corner_bytes += 4 * (frames.numel() + 2 * iy.numel() + got.numel())
-    print('  corner_values, the four scales of a step:')
-    kernels.append(kernel_entry('corner_values', 'warp_corners.cu',
-                                'warp_pallas.py:126', err_corners,
-                                (k_total, p_total, None),
-                                bound(nbytes=corner_bytes)))
-    del frames, grid, iy, ix, got, want, warped
+        # one graph a route, its backward timed with retain_graph
+        leaves, outs = {}, {}
+        for name, fn in routes.items():
+            leaves[name] = grid.clone().requires_grad_(True)
+            outs[name] = fn(frames, leaves[name].permute(0, 2, 3, 1))
+        warped = {name: (outs[name].detach(), torch.autograd.grad(
+            outs[name], leaves[name], cot, retain_graph=True)[0])
+            for name in ('fused', 'plain')}
+        torch.cuda.synchronize()
+        print(f'  {S}x{S}: corners equal ({100 * outside:.2f}% zero); the '
+              'fused warp equals the corner twin\'s bit for bit: forward '
+              f'{bits_equal(*(warped[k][0] for k in warped))}, grid '
+              f'gradient {bits_equal(*(warped[k][1] for k in warped))}')
+        err_fwd = max(err_fwd, check_close(
+            f'{S}x{S} warped frames', warped['fused'][0], warped['plain'][0],
+            1e-5, 1e-5))
+        err_bwd = max(err_bwd, check_close(
+            f'{S}x{S} grid gradient', warped['fused'][1], warped['plain'][1],
+            1e-4, 1e-4))
+
+        def fwd(name):
+            return lambda: routes[name](frames, view)
+
+        def bwd(name):
+            return lambda: torch.autograd.grad(outs[name], leaves[name], cot,
+                                               retain_graph=True)
+
+        def fwd_bwd_ops(name):
+            def run():
+                leaf = grid.detach().requires_grad_(True)
+                out = routes[name](frames, leaf.permute(0, 2, 3, 1))
+                torch.autograd.grad(out, leaf, cot)
+            return sum(n for _, n, _ in device_parts(run))
+
+        points, frame_bytes = B * S * S, 4 * frames.numel()
+        times = {
+            'corners': time_pair(
+                lambda: warp_cuda.corner_values(frames, iy, ix),
+                lambda: warp.corner_values(frames, iy, ix)),
+            'fwd': time_pair(fwd('fused'), fwd('plain'), fwd('library')),
+            'bwd': time_pair(bwd('fused'), bwd('plain'), bwd('library'))}
+        unfused = {'fwd': device_ms(fwd('unfused')),
+                   'bwd': device_ms(bwd('unfused'))}
+        # each input read once, each output written once: the frames and
+        # the coordinates or grid, then the four corners; the warped
+        # frames; the cotangent and the grid gradient
+        nbytes = {'corners': frame_bytes + 4 * (2 + 4) * points,
+                  'fwd': frame_bytes + 4 * (2 + 1) * points,
+                  'bwd': frame_bytes + 4 * (2 + 1 + 2) * points}
+        for key, (k_ms, p_ms, lib_ms) in times.items():
+            b_ms = bound(nbytes=nbytes[key])[0]
+            for i, v in enumerate((k_ms, p_ms, lib_ms or 0.0, b_ms)):
+                sums[key][i] += v
+            if key != 'corners':
+                per_scale[key].append({
+                    'size': S, 'ms': k_ms, 'plain_ms': p_ms,
+                    'library_ms': lib_ms, 'unfused_ms': unfused[key],
+                    'bound_ms': b_ms})
+                print(f'  {S}x{S} warp_{key}: kernel {k_ms:.4f} ms, plain '
+                      f'{p_ms:.4f} ms, F.grid_sample {lib_ms:.4f} ms, K3\'s '
+                      f'corners and plain ops {unfused[key]:.4f} ms; bound '
+                      f'{b_ms:.4f} ms, kernel at {100 * b_ms / k_ms:.1f}% of '
+                      'it')
+        print(f'  {S}x{S}: device ops of one warp forward and backward: '
+              f'{fwd_bwd_ops("unfused"):g} through K3\'s corners and plain '
+              f'ops, {fwd_bwd_ops("fused"):g} fused')
+        del leaves, outs, warped
+    print('  the four scales of a step:')
+    for name, key, err in (('corner_values', 'corners', err_corners),
+                           ('warp_fwd', 'fwd', err_fwd),
+                           ('warp_bwd', 'bwd', err_bwd)):
+        k_ms, p_ms, lib_ms, b_ms = sums[key]
+        kernels.append(kernel_entry(
+            name, 'warp_corners.cu', 'warp_pallas.py:126', err,
+            (k_ms, p_ms, None if key == 'corners' else lib_ms),
+            (b_ms, 'bytes', 'bytes')))
+        if key == 'corners':   # on the main path inside the fused pair
+            kernels[-1]['gather_runs_inside'] = ['warp_fwd', 'warp_bwd']
+        else:
+            kernels[-1]['per_scale'] = per_scale[key]
+    del frames, grid, view, iy, ix, got, want
     torch.cuda.synchronize()
 
     # --- 5. and 6. one step of each config: kernel path against twins ----
@@ -1144,10 +1209,11 @@ def main():
             label = f'{phases[0]} {config}, cudnn.deterministic={deterministic}'
             step_fn, state, step_ms, counts = train(
                 label, m, evaluator, host, device, card, counters)
+            warps = 4 * n if config == 'recipe' else 0
             check_counts(config, counts, {
                 'voxelize_fwd': n, 'voxelize_bwd': n, 'kernel_mlp_fwd': n,
-                'kernel_mlp_bwd': n,
-                'corner_values': 4 * n if config == 'recipe' else 0})
+                'kernel_mlp_bwd': n, 'corner_values': 0, 'warp_fwd': warps,
+                'warp_bwd': warps})
             launches.setdefault(config, counts)
             times[deterministic].append(step_ms)
         bare_ms[config] = {k: statistics.mean(v) for k, v in times.items()}
@@ -1179,7 +1245,8 @@ def main():
         entry['golden_launches'] = launches['golden'][name]
 
     jax_side = sorted(m for m in sys.modules if m.split('.')[0] in (
-        'jax', 'flax', 'optax', 'dvs_of_training_framework_tpu'))
+        'jax', 'flax', 'optax', 'dvs_of_training_framework_tpu', 'bench',
+        'scripts'))
     if jax_side:
         raise AssertionError(f'the port loaded JAX-side modules: {jax_side}')
 

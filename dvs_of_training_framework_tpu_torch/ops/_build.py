@@ -28,14 +28,16 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 # argtypes of every C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    'voxelize_count': [_P] * 5 + [_LL, _I, _I, _I, _P],
-    'voxelize_fwd': [_P] * 9 + [_LL, _I, _I, _I, _I, _I, _P],
+    'voxelize_fwd': [_P] * 9 + [_LL] + [_I] * 6 + [_P],
+    'voxelize_fwd_blocks': [_LL],
     'voxelize_bwd': [_P] * 6 + [_LL, _I, _I, _I, _I, _I, _P],
     'kernel_mlp_fwd': [_P] * 8 + [_LL, _I, _P],
     'kernel_mlp_bwd': [_P] * 11 + [_LL, _I, _I, _P],
     'kernel_mlp_grad_size': [],
     'kernel_mlp_bwd_blocks': [_LL],
     'warp_corners': [_P] * 4 + [_I, _I, _I, _I, _P],
+    'warp_fwd': [_P] * 3 + [_I] * 5 + [_LL] * 4 + [_P],
+    'warp_bwd': [_P] * 4 + [_I] * 5 + [_LL] * 4 + [_P],
 }
 
 

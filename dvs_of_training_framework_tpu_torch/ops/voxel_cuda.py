@@ -23,6 +23,9 @@ launches = {'fwd': 0, 'bwd': 0}
 plain = voxelize_scatter
 
 _WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
+TILE_CELLS = 256     # cells of one image row that the forward sums on chip
+MAX_CHANNELS = 32    # channels the forward's shared-memory tile holds
+MAX_TILES = 49152    # tiles whose counts one block holds in shared memory
 
 
 def _check_inputs(x, y, plane, weights, valid):
@@ -30,8 +33,10 @@ def _check_inputs(x, y, plane, weights, valid):
         raise ValueError(f'weights must be float32 or bfloat16 [E, C], got '
                          f'{weights.dtype} {tuple(weights.shape)}')
     E = weights.shape[0]
-    if E == 0 or weights.shape[1] == 0:
-        raise ValueError('voxelize needs at least one event and channel')
+    if E == 0 or not 0 < weights.shape[1] <= MAX_CHANNELS:
+        raise ValueError(f'voxelize needs at least one event and 1 to '
+                         f'{MAX_CHANNELS} channels, got {E} and '
+                         f'{weights.shape[1]}')
     for name, t, dtype in (('x', x, torch.int32), ('y', y, torch.int32),
                            ('plane', plane, torch.int32),
                            ('valid', valid, torch.bool)):
@@ -47,32 +52,44 @@ def _check_inputs(x, y, plane, weights, valid):
         raise ValueError('weights must be contiguous')
 
 
+def fwd_layout(E: int, P: int, H: int, W: int):
+    """``(tiles, key dtype)`` of K1's forward: a tile is up to 256 cells of
+    one image row, and a key holds an event's cell in its tile (8 bits)
+    above its index (the bits of ``E - 1``), in int32 where that fits and
+    in int64 otherwise."""
+    tiles = P * H * -(-W // TILE_CELLS)
+    event_bits = max(1, (E - 1).bit_length())
+    return tiles, torch.int32 if 8 + event_bits <= 32 else torch.int64
+
+
 class _Voxelize(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, y, plane, weights, valid, num_planes, height, width):
         E, C = weights.shape
         device = weights.device
-        cells = num_planes * height * width
-        # the histogram of events per cell, then the hot-cell counter
-        counts = torch.zeros(cells + 1, dtype=torch.int32, device=device)
-        scratch = torch.empty(3 * E, dtype=torch.int32, device=device)
+        tiles, key_dtype = fwd_layout(E, num_planes, height, width)
+        if tiles > MAX_TILES:
+            raise ValueError(f'voxelize: {tiles} tiles of a row\'s 256 cells, '
+                             f'at most {MAX_TILES}')
+        lib = _build.library()
+        # a row a bucket block: where each tile's group starts in its
+        # region, then its count; the keys: the blocks' regions, then
+        # scratch for tiles of many events; the top of that scratch
+        blocks = lib.voxelize_fwd_blocks(E)
+        offsets = torch.empty((blocks, tiles + 1), dtype=torch.int32,
+                              device=device)
+        keys = torch.empty(3 * E, dtype=key_dtype, device=device)
+        top = torch.empty(1, dtype=torch.int32, device=device)
         out = torch.empty((num_planes, height, width, C), dtype=torch.float32,
                           device=device)
-        lib = _build.library()
         stream = torch.cuda.current_stream(device).cuda_stream
-        status = lib.voxelize_count(
-            x.data_ptr(), y.data_ptr(), plane.data_ptr(), valid.data_ptr(),
-            counts.data_ptr(), E, num_planes, height, width, stream)
-        _build.check(status, 'voxelize_count')
-        # each cell's range ends where the inclusive scan of the counts
-        # says: exact index preparation between the kernel's two steps
-        ends = torch.cumsum(counts[:cells], 0, dtype=torch.int32)
         status = lib.voxelize_fwd(
             x.data_ptr(), y.data_ptr(), plane.data_ptr(), weights.data_ptr(),
-            valid.data_ptr(), counts.data_ptr(), ends.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), E, C, num_planes, height,
-            width, weights.dtype == torch.bfloat16, stream)
+            valid.data_ptr(), offsets.data_ptr(), keys.data_ptr(),
+            top.data_ptr(), out.data_ptr(), E, C, num_planes, height, width,
+            weights.dtype == torch.bfloat16, key_dtype == torch.int64,
+            stream)
         _build.check(status, 'voxelize_fwd')
         launches['fwd'] += 1
         ctx.save_for_backward(x, y, plane, valid)

@@ -6,10 +6,12 @@ out-of-border corners, differentiable with respect to the grid.  The
 photometric loss treats the frames as constants.
 
 ``grid_sample`` is ``F.grid_sample``.  ``grid_sample_onehot`` is the
-corner-value formulation that the bf16x2 loss recipe selects: the four
-corner values of every point come from one gather (``corner_values``
-here, the K3 kernel in ``ops/warp_cuda.py`` on the card), the bilinear
-blend and the analytic grid gradient are plain ops on the saved corners.
+corner-value formulation that the bf16x2 loss recipe selects.  Its plain
+twin, ``grid_sample_corners``, takes the four corner values of every
+point from one gather (``corner_values``) and runs the bilinear blend and
+the analytic grid gradient as plain ops on the saved corners; on the card
+the fused K3 kernels of ``ops/warp_cuda.py`` do all of it, one forward
+and one backward launch.
 """
 import torch
 import torch.nn.functional as F
@@ -117,15 +119,25 @@ class _GridSampleOnehot(torch.autograd.Function):
         return None, dgrid.reshape(N, Ho, Wo, 2), None
 
 
+def grid_sample_corners(images: torch.Tensor, grid: torch.Tensor,
+                        corners=corner_values) -> torch.Tensor:
+    """``grid_sample`` through the corner values ``corners(images, iy,
+    ix)`` (``corner_values`` by default, the K3 gather
+    ``ops.warp_cuda.corner_values`` on the card), the blend and the
+    analytic grid VJP as plain ops; differentiable with respect to ``grid``
+    only.  The plain twin of the fused kernels in ``ops/warp_cuda.py``."""
+    return _GridSampleOnehot.apply(images.detach(), grid, corners)
+
+
 def grid_sample_onehot(images: torch.Tensor, grid: torch.Tensor,
                        bf16x2=False, plain_ops: bool = False):
     """``grid_sample`` through the corner values, differentiable with
     respect to ``grid`` only (``images`` are constants).
 
-    On a CUDA tensor the corners come from the K3 kernel
-    (``ops/warp_cuda.py``), on a CPU tensor from ``corner_values``;
-    ``plain_ops=True`` takes ``corner_values`` on every device, as the
-    reference path a kernel run is compared with.
+    ``ops.warp_cuda.grid_sample_onehot`` runs it: the fused K3 kernels on
+    a CUDA tensor, ``grid_sample_corners`` on a CPU tensor.
+    ``plain_ops=True`` takes ``grid_sample_corners`` on every device, as
+    the reference path a kernel run is compared with.
 
     ``bf16x2`` (False, True or ``'x1'``) is the JAX package's loss
     precision.  There it picks how the TPU's matrix unit contracts one-hot
@@ -137,8 +149,7 @@ def grid_sample_onehot(images: torch.Tensor, grid: torch.Tensor,
         raise ValueError(f'bf16x2 must be one of {BF16X2_MODES}, '
                          f'got {bf16x2!r}')
     if plain_ops:
-        corners = corner_values
-    else:
-        # imported here: ops/warp_cuda.py imports this module's twin
-        from .warp_cuda import corner_values as corners
-    return _GridSampleOnehot.apply(images.detach(), grid, corners)
+        return grid_sample_corners(images, grid)
+    # imported here: ops/warp_cuda.py imports this module's twins
+    from .warp_cuda import grid_sample_onehot as fused
+    return fused(images, grid)

@@ -202,3 +202,17 @@ def test_summary_events_read_back_equal(tmp_path):
         assert got == want
     assert [(e['step'], e['scalars']) for e in want if e['scalars']] == [
         (step, {tag: pytest.approx(value)}) for tag, value, step in scalars]
+
+
+@pytest.mark.parametrize('sample_offset', [0, 13 * 8])
+def test_synthetic_bench_batches_equal_bench(sample_offset):
+    """The port's copy of bench.py's batch maker and of the simulator it
+    calls gives the batches ``bench.make_collated`` gives, for one seed."""
+    import bench
+    from dvs_of_training_framework_tpu_torch.data import synthetic
+    assert (synthetic.BATCH_SIZE, synthetic.IMSIZE, synthetic.CAPACITY) == \
+        (bench.BATCH_SIZE, bench.IMSIZE, bench.CAPACITY)
+    want = bench.make_collated(np.random.default_rng(0), sample_offset)
+    got = synthetic.make_collated(np.random.default_rng(0), sample_offset)
+    assert_equal_tree(got, want)
+    assert got['events']['x'].size > 0

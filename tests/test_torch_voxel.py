@@ -9,7 +9,9 @@ bf16 weight gradient at 1e-2 (test_bf16_weights_single_pass).
 The twin adds each bin's contributions in ascending event order, bit for
 bit as a Python loop does, and the card's K1 is held to that order: on a
 card (tests marked ``cuda``) its grid repeats exactly and equals the
-twin's on the CPU.  The card's machine has no JAX, so the JAX imports are
+twin's on the CPU, on tiles of every kind the kernel meets (sparse, wider
+than one tile, crowded past one sorting chunk, every event in one cell,
+no valid event).  The card's machine has no JAX, so the JAX imports are
 optional there; run the card's tests with ``python -m pytest --noconftest
 -m cuda tests/test_torch_voxel.py``.
 """
@@ -179,6 +181,45 @@ def test_twin_adds_in_event_order(seed, dtype):
     assert not np.array_equal(backwards, want)
 
 
+def overflow_case(seed, E=4000, P=2, H=3, W=300, C=5):
+    """One row's first tile holds more events than the kernel sorts in one
+    chunk (2048): 2600 events on row 1 of plane 0, 700 of them on one
+    cell, the rest spread over both tiles of every row."""
+    x, y, plane, weights, valid, P, H, W = crowded_case(seed, E, P, H, W, C)
+    rng = np.random.default_rng(seed + 100)
+    x[:2600] = rng.integers(0, 256, 2600)
+    x[:700] = 17
+    y[:2600], plane[:2600] = 1, 0
+    perm = rng.permutation(E)
+    return x[perm], y[perm], plane[perm], weights[perm], valid[perm], P, H, W
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_twin_on_a_tile_past_one_chunk(dtype):
+    x, y, plane, weights, valid, P, H, W = overflow_case(3)
+    assert np.sum(valid & (plane == 0) & (y == 1) & (x < 256)) > 2048
+    w = torch.from_numpy(weights).to(dtype)
+    got = voxelize_scatter(*(torch.from_numpy(a) for a in (x, y, plane)), w,
+                           torch.from_numpy(valid), P, H, W)
+    want = event_order_sum(x, y, plane, w.float().numpy(), valid, P, H, W)
+    assert np.array_equal(got.numpy().view(np.int32), want.view(np.int32))
+    jax_grid = jax_scatter(*(jnp.asarray(a) for a in (x, y, plane)),
+                           jnp.asarray(w.float().numpy()), jnp.asarray(valid),
+                           num_planes=P, height=H, width=W)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_grid), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize('shape, tiles, key_dtype', [
+    ((2 ** 17, 8, 256, 256), 2048, torch.int32),
+    ((2 ** 24, 1, 2, 300), 4, torch.int32),
+    ((2 ** 24 + 1, 3, 1, 513), 9, torch.int64)])
+def test_forward_layout(shape, tiles, key_dtype):
+    """Tiles of up to 256 cells of a row; keys of 8 cell bits above the
+    event index, in int32 while that fits."""
+    assert voxel_cuda.fwd_layout(*shape) == (tiles, key_dtype)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -203,3 +244,39 @@ def test_kernel_repeats_and_equals_the_cpu_twin(cuda, dtype):
     for grid in grids:
         assert torch.equal(grid.cpu().view(torch.int32),
                            want.view(torch.int32))
+
+
+def tile_cases():
+    """(x, y, plane, weights, valid, P, H, W) for each kind of tile."""
+    sparse = crowded_case(4, E=64, P=8, H=256, W=256, C=9)
+    wide = crowded_case(5, E=20000, P=2, H=8, W=600, C=9)
+    one_cell = list(crowded_case(6, E=5000, P=2, H=4, W=8, C=9))
+    one_cell[0][:], one_cell[1][:], one_cell[2][:] = 5, 3, 1
+    none_valid = list(crowded_case(7, E=300, P=2, H=4, W=8, C=3))
+    none_valid[4] = np.zeros(300, bool)
+    many_chunks = list(crowded_case(8, E=9000, P=1, H=2, W=40, C=4))
+    many_chunks[1][:] = 0                    # 8000 events on one row
+    return {'sparse': sparse, 'wide rows': wide, 'one cell': one_cell,
+            'past one chunk': overflow_case(9, C=9),
+            'many chunks': many_chunks, 'no valid event': none_valid}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('case', ['sparse', 'wide rows', 'one cell',
+                                  'past one chunk', 'many chunks',
+                                  'no valid event'])
+def test_tile_kernel_equals_the_cpu_twin(cuda, case, dtype):
+    x, y, plane, weights, valid, P, H, W = tile_cases()[case]
+    inputs = [torch.from_numpy(np.ascontiguousarray(a))
+              for a in (x, y, plane, weights, valid)]
+    inputs[3] = inputs[3].to(dtype)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # a serial add in event order
+    try:
+        want = voxelize_scatter(*inputs, P, H, W)
+    finally:
+        torch.set_num_threads(threads)
+    got = voxel_cuda.voxelize(*(t.to(cuda) for t in inputs), P, H, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

@@ -11,21 +11,34 @@
   (test_warp_parity.py::test_onehot_variant_matches_values_and_grads), and
   against the port's own ``F.grid_sample`` path at the same tolerances.
 - Points far outside the frame (+-1e6 px) and NaN points give zero corners.
+- The fused warp's wrapper (``ops.warp_cuda.grid_sample_onehot``), fed a
+  permuted ``[N, 2, H, W]`` grid as the loss feeds it, with far and NaN
+  points, against JAX at the same 1e-5 / 1e-4; on a card (tests marked
+  ``cuda``) its kernels against the corner twin at 1e-5 / 1e-4.
+
+The card's machine has no JAX, so the JAX imports are optional there; run
+the card's tests with ``python -m pytest --noconftest -m cuda
+tests/test_torch_warp.py``.
 """
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dvs_of_training_framework_tpu.ops.warp import (
-    _corner_values as jax_corner_values, grid_sample_onehot as jax_gso)
-from dvs_of_training_framework_tpu.ops.warp_pallas import \
-    corner_values_pallas
+try:
+    import jax
+    import jax.numpy as jnp
+
+    from dvs_of_training_framework_tpu.ops.warp import (
+        _corner_values as jax_corner_values, grid_sample_onehot as jax_gso)
+    from dvs_of_training_framework_tpu.ops.warp_pallas import \
+        corner_values_pallas
+except ModuleNotFoundError:     # a card's machine: the cuda tests only
+    jax = None
 from dvs_of_training_framework_tpu_torch.losses import (LOSS_PRECISIONS,
                                                         SingleScaleLoss)
+from dvs_of_training_framework_tpu_torch.ops import warp_cuda
 from dvs_of_training_framework_tpu_torch.ops.warp import (
-    corner_values, grid_sample, grid_sample_onehot)
+    corner_values, grid_sample, grid_sample_corners, grid_sample_onehot)
 
 # (N, C, H, W, P): odd sizes, a ragged chunk, and a multi-channel frame
 SHAPES = [(2, 1, 12, 18, 140), (3, 1, 16, 24, 221), (2, 3, 9, 7, 50)]
@@ -153,3 +166,88 @@ def test_bf16x2_must_be_a_loss_precision():
     with pytest.raises(ValueError):
         grid_sample_onehot(torch.zeros(1, 1, 4, 4), torch.zeros(1, 2, 2, 2),
                            'bf16x3')
+
+
+def loss_grid(rng, N, H, W, Ho, Wo):
+    """The photometric loss's grid for flows of a few px, as the loss
+    builds it (``SingleScaleLoss._warp_grid``): ``[N, 2, Ho, Wo]``, read
+    through its permuted ``[N, Ho, Wo, 2]`` view.  Some points are +-1e6
+    px away, some NaN."""
+    flow = rng.normal(0, 3, (N, 2, Ho, Wo)).astype(np.float32)
+    flow[:, 0, 0, :2] = [1e6, -1e6]
+    flow[:, 1, 1, :2] = [1e6, -1e6]
+    flow[:, :, 2, :2] = np.nan
+    grid = SingleScaleLoss((Ho, Wo))._warp_grid(torch.from_numpy(flow))
+    # the frames are H x W, the grid's points pixel coordinates of them
+    scale = torch.tensor([(Wo - 1) / (W - 1), (Ho - 1) / (H - 1)])
+    return ((grid + 1) * scale[None, :, None, None] - 1).contiguous()
+
+
+@pytest.mark.parametrize('seed', [0, 3])
+def test_fused_warp_wrapper_on_the_loss_grid_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    N, H, W, Ho, Wo = 2, 12, 18, 10, 14
+    images = rng.uniform(0, 255, (N, 1, H, W)).astype(np.float32)
+    grid = loss_grid(rng, N, H, W, Ho, Wo).requires_grad_(True)
+    view = grid.permute(0, 2, 3, 1)
+    assert not view.is_contiguous()
+    cot = rng.normal(size=(N, 1, Ho, Wo)).astype(np.float32)
+
+    nhwc = jnp.asarray(view.detach().numpy())
+    want = np.asarray(jax_gso(jnp.asarray(images), nhwc, 64, False, False))
+    want_grad = np.asarray(jax.grad(
+        lambda g: (jax_gso(jnp.asarray(images), g, 64, False, False)
+                   * jnp.asarray(cot)).sum())(nhwc))
+
+    before = dict(warp_cuda.launches)
+    out = warp_cuda.grid_sample_onehot(torch.from_numpy(images), view)
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert warp_cuda.launches == before         # the CPU takes the twin
+    got, got_grad = out.detach().numpy(), grid.grad.permute(0, 2, 3, 1)
+    assert np.isnan(got).sum() == 2 * N * 1      # the NaN points
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got_grad.numpy(), want_grad, rtol=1e-4,
+                               atol=1e-4)
+    assert not got[:, :, :2, :2].any()           # the far points
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('size', [32, 64, 256])
+@pytest.mark.parametrize('layout', ['loss view', 'contiguous'])
+def test_fused_warp_matches_the_corner_twin(cuda, size, layout):
+    """The fused kernels against ``grid_sample_corners``: values 1e-5,
+    grid gradient 1e-4 (test_warp_parity.py:128,146), NaN where the twin
+    has NaN; one forward and one backward launch, no corner tensor."""
+    rng = np.random.default_rng(size)
+    N = 8
+    images = torch.from_numpy(rng.uniform(0, 255, (N, 1, size, size))
+                              .astype(np.float32)).to(cuda)
+    grid = loss_grid(rng, N, size, size, size, size).to(cuda)
+    cot = torch.randn(N, 1, size, size, device=cuda)
+    results = []
+    for fn in (warp_cuda.grid_sample_onehot, grid_sample_corners):
+        leaf = grid.clone().requires_grad_(True)
+        view = leaf.permute(0, 2, 3, 1)
+        if layout == 'contiguous':
+            view = view.contiguous()
+        before = dict(warp_cuda.launches)
+        out = fn(images, view)
+        (dgrid,) = torch.autograd.grad(out, leaf, cot)
+        torch.cuda.synchronize()
+        results.append((out, dgrid))
+        launched = {k: warp_cuda.launches[k] - before[k] for k in before}
+        if fn is warp_cuda.grid_sample_onehot:
+            assert launched == {'corners': 0, 'fwd': 1, 'bwd': 1}
+    (out, dgrid), (want, want_grad) = results
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+    torch.testing.assert_close(dgrid, want_grad, rtol=1e-4, atol=1e-4,
+                               equal_nan=True)
+    assert out.isnan().sum() == 2 * N
