@@ -69,7 +69,28 @@ Phases:
     largest difference of any parameter between two runs of steps 9-12
     from the same state, and exactly where those two runs agree;
 13. the EMA export: ``finalize(use_ema=True)`` of checkpoint 12 equals
-    the EMA of the optimizer state and loads into a fresh model.
+    the EMA of the optimizer state and loads into a fresh model;
+14. the data path on the card: the port's tools build the synthetic
+    ``varied`` benchmark (``scripts/prep_accuracy_varied.sh``'s chain,
+    cut in its durations and its sample count only; each tool timed), and
+    the training CLI's ``main()`` trains 12 production-recipe steps on its
+    shards (bs 8, 256x256, phase 11's event capacity 2^17, checkpoints
+    and validation on the raw val split every 6 steps), with the launch
+    counters reset just before and read just after; its step time beside
+    phase 11's ``run()`` loop step, at the same capacity, is the reader's
+    cost;
+15. the evaluation CLI's ``main()`` on that run's last checkpoint, live
+    and ``--use-ema``, over ``config/synth_testing.json`` (mean AEE, %AEE,
+    mean median EE), with the counters reset just before; then
+    ``evaluate`` timed alone at 8 windows a block (windows/s, the time of
+    the forward and of the host's GT propagation, the device-busy share
+    of one block under the profiler), and the card's flows at every scale
+    on two windows held to the same weights' flows on the CPU (rtol 1e-4,
+    TF32 off against CPU convolutions);
+16. K1 at depth 64 (two channel groups) on the bench batch: with fp32 and
+    bf16 weights, 20 launches equal the one-thread CPU twin bit for bit,
+    forward and backward; its time beside the twin's, ``index_put_`` and
+    the bound; and one recipe training step at depth 64.
 
 Prints the kernels as one JSON line (each with its time, the twin's,
 one PyTorch call's where one computes the same function, its bound at
@@ -81,6 +102,9 @@ that line is not printed.
 Usage (from the root of a checkout):  python3 chip_smoke.py
 """
 import json
+import math
+import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -108,6 +132,17 @@ LOSS_WEIGHTS = (0.5, 1, 1)
 CONFIGS = {'golden': ('float32', 'highest'), 'recipe': ('bfloat16', 'bf16x2')}
 KERNEL_SOURCE = 'dvs_of_training_framework_tpu_torch/csrc/'
 LOOP_STEPS, LOOP_EVERY, SKIP_AT = 12, 4, 2
+# phase 14: the synthetic benchmark's durations in seconds and its sample
+# count, cut from scripts/prep_accuracy_varied.sh's 60, 12, 12 and 16384
+SYNTH_CUTS = (('--train-secs', 2.0, 60.0), ('--eval-secs', 1.0, 12.0),
+              ('--val-secs', 1.0, 12.0))
+SHARD_SAMPLES, SHARD_SAMPLES_FULL = 96, 16384
+MAIN_STEPS, MAIN_EVERY = 12, 6
+EVAL_BLOCK = 8                 # windows a forward in evaluate
+DEEP = 64                      # phase 16's event-representation depth
+RECIPE_FLAGS = ['--precision', 'bfloat16', '--loss-precision', 'bf16x2',
+                '--grad-clip-norm', '1.0', '--ema-decay', '0.999', '-lr',
+                '1e-3', '--half_life', '20000', '--num-warmup-steps', '200']
 
 
 MLP_GRADS = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
@@ -409,6 +444,36 @@ def repeat_step(model, evaluator, batch):
         raise AssertionError('the golden step does not repeat bit for bit')
 
 
+def read_scalars(log_dir):
+    """``{tag: [values]}`` of the TensorBoard files in ``log_dir``."""
+    from dvs_of_training_framework_tpu_torch.utils.tb import read_events
+    scalars = {}
+    for path in log_dir.glob('events.out.tfevents.*'):
+        for event in read_events(path):
+            for tag, value in event['scalars'].items():
+                scalars.setdefault(tag, []).append(value)
+    return scalars
+
+
+def skipped_after(log_dir, batch_size):
+    """Steps taken when each skipped batch was read: the loop logs
+    'General/skipped batches' at the samples passed so far."""
+    from dvs_of_training_framework_tpu_torch.utils.tb import read_events
+    return {event['step'] // batch_size
+            for path in log_dir.glob('events.out.tfevents.*')
+            for event in read_events(path)
+            if 'General/skipped batches' in event['scalars']}
+
+
+def reset(counters):
+    for counter, key in counters.values():
+        counter[key] = 0
+
+
+def read_counts(counters):
+    return {name: counter[key] for name, (counter, key) in counters.items()}
+
+
 def train(label, model, evaluator, host, device, card, counters):
     """WARMUP + STEPS training steps, each on a host batch copied to the
     card; the launch counters are reset just before and read just after.
@@ -426,8 +491,7 @@ def train(label, model, evaluator, host, device, card, counters):
     losses = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for counter, key in counters.values():
-        counter[key] = 0
+    reset(counters)
     for i, host_batch in enumerate(host):
         if i == WARMUP:
             torch.cuda.synchronize()
@@ -436,7 +500,7 @@ def train(label, model, evaluator, host, device, card, counters):
         losses.append(loss)
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / STEPS * 1e3
-    counts = {name: counter[key] for name, (counter, key) in counters.items()}
+    counts = read_counts(counters)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = torch.stack(losses).cpu()
     print(f'{label} {WARMUP}+{STEPS} steps: losses '
@@ -542,7 +606,8 @@ def bits_equal(a, b):
 
 
 def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
-    """Phases 11-13 in ``out``; returns phase 11's launch counts."""
+    """Phases 11-13 in ``out``; returns phase 11's launch counts and its
+    loop step in ms."""
     from dvs_of_training_framework_tpu_torch import train as cli
     from dvs_of_training_framework_tpu_torch.data import pad_batch
     from dvs_of_training_framework_tpu_torch.losses import (LOSS_PRECISIONS,
@@ -555,7 +620,7 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
         Serializer, read_params_file)
     from dvs_of_training_framework_tpu_torch.training.train import train
     from dvs_of_training_framework_tpu_torch.utils.tb import (
-        NullSummaryWriter, SummaryWriter, read_events)
+        NullSummaryWriter, SummaryWriter)
 
     B = collated[0]['size']
     good = collated[:LOOP_STEPS]
@@ -585,8 +650,7 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
         '--event-capacity', str(capacity)])
 
     # --- 11. the loop ------------------------------------------------------
-    for counter, key in counters.values():
-        counter[key] = 0
+    reset(counters)
     clock = LoopClock()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -594,13 +658,8 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
             timers=clock)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    counts = {name: counter[key] for name, (counter, key) in counters.items()}
-
-    scalars = {}
-    for path in (out / 'log').glob('events.out.tfevents.*'):
-        for event in read_events(path):
-            for tag, value in event['scalars'].items():
-                scalars.setdefault(tag, []).append(value)
+    counts = read_counts(counters)
+    scalars = read_scalars(out / 'log')
     losses = scalars.get('General/Train loss', [])
     val_losses = scalars.get('General/Validation loss', [])
     print(f'[11] loop, {LOOP_STEPS} recipe steps through the CLI\'s run(): '
@@ -647,7 +706,8 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
     ckpt_s = clock.hook_seconds('serialization', LOOP_EVERY)
     val_s = clock.hook_seconds('validation', LOOP_EVERY)
     size_mb = (out / f'step_{LOOP_EVERY}.ckpt').stat().st_size / 1e6
-    print(f'  loop step {statistics.median(loop_ms):.3f} ms (median of steps '
+    loop_step_ms = statistics.median(loop_ms)
+    print(f'  loop step {loop_step_ms:.3f} ms (median of steps '
           f'{WARMUP + 1}-{LOOP_STEPS - 1}, hooks excluded: '
           + ' '.join(f'{v:.1f}' for v in loop_ms)
           + f'); the bare step of phase 9 with deterministic cuDNN: '
@@ -773,7 +833,321 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
           'tensors equal the optimizer\'s EMA bit for bit and load into a '
           f'fresh model (validation loss {loss:.5f}); largest EMA - live '
           f'weight gap {live_gap:.3e}')
-    return counts
+    return counts, loop_step_ms
+
+
+def build_synthetic(root, shards):
+    """Phase 14's set: the port's three tools in turn, each timed; returns
+    ``{tool: seconds}``."""
+    from dvs_of_training_framework_tpu_torch.tools import (
+        make_synthetic_mvsec, prepare_batches, sequence2samples)
+    configs = REPO / 'dvs_of_training_framework_tpu_torch' / 'config'
+    seconds = {}
+    t0 = time.perf_counter()
+    make_synthetic_mvsec.main(
+        [str(root), '--motion', 'varied', '--speed', '0.35']
+        + [v for flag, secs, _ in SYNTH_CUTS for v in (flag, str(secs))])
+    seconds['make_synthetic_mvsec'] = time.perf_counter() - t0
+    os.environ['DVS_DATA_ROOT'] = str(root)
+    t0 = time.perf_counter()
+    sequence2samples.main([str(configs / 'synth_train_datasets.json')])
+    seconds['sequence2samples'] = time.perf_counter() - t0
+    # the loaders' split (train = outdoor_day2, val = outdoor_day1), as
+    # scripts/prep_accuracy_varied.sh links it
+    split = root / 'training' / 'synth'
+    (split / 'outdoor_day2').symlink_to(split / 'outdoor_synth2')
+    (split / 'outdoor_day1').symlink_to(split / 'outdoor_synth3')
+    os.environ['DVS_DATA_PATH'] = str(split)
+    t0 = time.perf_counter()
+    prepare_batches.main(prepare_batches.parse_args(
+        ['-o', str(shards), '-s', str(SHARD_SAMPLES), '--samples-per-file',
+         '32']))
+    seconds['prepare_batches'] = time.perf_counter() - t0
+    return seconds
+
+
+def data_phases(out, capacity, device, card, counters, loop_step_ms):
+    """Phases 14 and 15 in ``out``; main() pads its batches to phase 11's
+    ``capacity``.  Returns the launch counts of main() and of the
+    evaluation CLI."""
+    from dvs_of_training_framework_tpu_torch import test as eval_cli
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data.augmentation import \
+        frame_generator
+    from dvs_of_training_framework_tpu_torch.evaluation import (
+        estimate_corresponding_gt_flow, evaluate)
+    from dvs_of_training_framework_tpu_torch.models import OpticalFlow
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+
+    # --- 14. the set, then main() ------------------------------------------
+    root, shards, run = out / 'synth', out / 'shards', out / 'run'
+    print('[14] the synthetic varied benchmark built on the card with the '
+          'port\'s tools; cut in duration and size only: ' + ', '.join(
+              f'{flag} {secs:g} (full {full:g})'
+              for flag, secs, full in SYNTH_CUTS)
+          + f', prepare_batches -s {SHARD_SAMPLES} (full '
+          f'{SHARD_SAMPLES_FULL})')
+    seconds = build_synthetic(root, shards)
+    n_elements = {p.name: len(list(p.glob('*.hdf5'))) for p in sorted(
+        (root / 'training' / 'synth').glob('outdoor_synth*'))}
+    print('  ' + ', '.join(f'{tool} {s:.2f} s' for tool, s in seconds.items())
+          + f'; elements {n_elements}; shards '
+          f'{sorted(p.name for p in shards.glob("*.hdf5"))}')
+
+    argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
+            '-ne', str(MAIN_STEPS), '--preprocessed-dataset-path',
+            str(shards), '--checkpointing_interval', str(MAIN_EVERY),
+            '--permanent_interval', str(MAIN_EVERY), '-vp', str(MAIN_EVERY),
+            '--event-capacity', str(capacity)] + RECIPE_FLAGS
+    clock = LoopClock()
+    run_fn = cli.run
+    # the host clock of phase 11, handed to the run() that main() calls
+    cli.run = lambda *a, **k: run_fn(*a, timers=clock, **k)
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+    finally:
+        cli.run = run_fn
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    main_counts = read_counts(counters)
+    scalars = read_scalars(run / 'log')
+    losses = scalars.get('General/Train loss', [])
+    val_losses = scalars.get('General/Validation loss', [])
+    steps = Serializer(run).list_known_steps()
+    print(f'[14] train.main(), {MAIN_STEPS} production-recipe steps on the '
+          f'shards: losses ' + ' '.join(f'{v:.5f}' for v in losses)
+          + '; validation ' + ' '.join(f'{v:.5f}' for v in val_losses)
+          + f'; checkpoints {steps}; skipped batches '
+          f'{scalars.get("General/skipped batches", [0.0])[-1]:g}')
+    print(f'  launches: {main_counts}')
+    if (len(losses) != MAIN_STEPS or not val_losses
+            or not np.isfinite(losses + val_losses).all()
+            or steps != list(range(0, MAIN_STEPS + 1, MAIN_EVERY))):
+        raise AssertionError('main(): missing or non-finite losses, or '
+                             f'checkpoints {steps}')
+    fwd = main_counts['voxelize_fwd']
+    if (main_counts['voxelize_bwd'] != MAIN_STEPS
+            or main_counts['kernel_mlp_bwd'] != MAIN_STEPS
+            or main_counts['warp_bwd'] != 4 * MAIN_STEPS
+            or main_counts['kernel_mlp_fwd'] != fwd
+            or main_counts['warp_fwd'] != 4 * fwd
+            or main_counts['corner_values'] != 0 or fwd <= MAIN_STEPS):
+        raise AssertionError(f'main(): launches {main_counts}')
+    main_ms = clock.step_ms(WARMUP + 1)
+    # a step whose interval also read a skipped (oversized) batch
+    skips = skipped_after(run / 'log', 8)
+    clean = [v for j, v in enumerate(main_ms, WARMUP + 1) if j not in skips]
+    print(f'  main() step {statistics.median(main_ms):.3f} ms (median of '
+          f'steps {WARMUP + 1}-{MAIN_STEPS - 1}, hooks excluded: '
+          + ' '.join(f'{v:.1f}' for v in main_ms) + '); '
+          + (f'{statistics.median(clean):.3f} ms over the {len(clean)} of '
+             'them that read no skipped batch' if clean else
+             'every one of them read a skipped batch')
+          + f' (skips after steps {sorted(skips)}); phase 11\'s run() '
+          f'loop step over batches in memory: {loop_step_ms:.3f} ms; both at '
+          f'event capacity {capacity}; main() {main_s:.2f} s in all; card: '
+          f'{card}')
+
+    # --- 15. the evaluation CLI on the last checkpoint -----------------------
+    configs = REPO / 'dvs_of_training_framework_tpu_torch' / 'config'
+    eval_argv = ['-m', str(run), '-o', str(out / 'eval'), '-s',
+                 str(MAIN_STEPS), '-d', device.type, '--test-config',
+                 str(configs / 'synth_testing.json')]
+    reset(counters)
+    results = {}
+    for label, extra in (('live', []), ('EMA', ['--use-ema'])):
+        t0 = time.perf_counter()
+        eval_cli.main(eval_argv + extra)
+        seconds = time.perf_counter() - t0
+        suffix = '_ema' if extra else ''
+        records = pickle.loads(
+            (out / 'eval' / f'step_{MAIN_STEPS}{suffix}.pkl').read_bytes())
+        results[label] = records
+        n_windows = sum(len(r.windows) for r in records)
+        print(f'[15] evaluation CLI, {label} weights of step {MAIN_STEPS}, '
+              f'{n_windows} windows in {seconds:.2f} s (model build and data '
+              'load included): ' + '; '.join(
+                  f'step {r.step}: mAEE {r.mAEE:.4f}, %AEE '
+                  f'{100 * r.mpAEE:.2f}, mMedEE {r.mMedEE:.4f} '
+                  f'({len(r.windows)} windows)' for r in records))
+        numbers = [v for r in records for v in (r.mAEE, r.mpAEE, r.mMedEE)]
+        if (len(records) != 3 or not np.isfinite(numbers).all()
+                or not all(r.windows for r in records)):
+            raise AssertionError(f'evaluation ({label}): {numbers}')
+    eval_counts = read_counts(counters)
+    blocks = 2 * sum(math.ceil(len(r.windows) / EVAL_BLOCK)
+                     for r in results['live'])
+    print(f'  launches (both runs): {eval_counts}')
+    if (eval_counts['voxelize_fwd'] != blocks
+            or eval_counts['kernel_mlp_fwd'] != blocks
+            or any(eval_counts[k] for k in eval_counts
+                   if k not in ('voxelize_fwd', 'kernel_mlp_fwd'))):
+        raise AssertionError(f'evaluation: launches {eval_counts}, '
+                             f'expected {blocks} forwards')
+    if all(a.mAEE == b.mAEE for a, b in zip(results['live'],
+                                             results['EMA'])):
+        raise AssertionError('evaluation: the EMA scores as the live weights')
+
+    # evaluate alone: windows/s, the forward's and the GT's time, and the
+    # device-busy share of one block
+    args = eval_cli.parse_args(eval_argv)
+    staged = eval_cli.export_weights_only(args)
+    dataset, shared_cfg = eval_cli.build_test_matrix(args)[0]
+    cfg = eval_cli.resolve_time_range(SimpleNamespace(**vars(shared_cfg)),
+                                      dataset)
+    event_crop, gt_crop = eval_cli.build_crops(dataset.imshape,
+                                               cfg.test_shape, cfg.crop_type)
+    frames = eval_cli.generate_frames(cfg, dataset.image_ts)
+    of = eval_cli.init_model(staged, cfg.test_shape)
+    spans = {'forward': [], 'gt': []}
+
+    def timed_of(*a, **k):
+        t = time.perf_counter()
+        flows = of(*a, **k)     # numpy: the device work is done
+        spans['forward'].append(time.perf_counter() - t)
+        return flows
+
+    def gt_flow_fn(start, stop):
+        t = time.perf_counter()
+        gt = estimate_corresponding_gt_flow(
+            dataset.gt['x_flow_dist'], dataset.gt['y_flow_dist'],
+            dataset.gt['timestamps'], start, stop)
+        spans['gt'].append(time.perf_counter() - t)
+        return gt
+
+    def run_evaluate():
+        return evaluate(timed_of, dataset.events, frames, dataset.gt,
+                        event_preproc_fun=event_crop, gt_proc_fun=gt_crop,
+                        is_car=cfg.is_car, gt_flow_fn=gt_flow_fn,
+                        batch_windows=EVAL_BLOCK)
+    run_evaluate()                                  # warm-up
+    walls = []
+    for _ in range(2):
+        spans = {'forward': [], 'gt': []}
+        t0 = time.perf_counter()
+        maee, mpaee = run_evaluate()
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    print(f'[15] evaluate, step {cfg.step}, {len(frames)} windows of '
+          f'{cfg.test_shape[0]}x{cfg.test_shape[1]} in blocks of '
+          f'{EVAL_BLOCK}: {len(frames) / wall:.2f} windows/s ({wall:.3f} s; '
+          f'runs {" ".join(f"{w:.3f}" for w in walls)}); forward '
+          f'{sum(spans["forward"]):.3f} s in {len(spans["forward"])} blocks, '
+          f'GT propagation {sum(spans["gt"]):.3f} s on its thread; mAEE '
+          f'{maee:.4f}, %AEE {100 * mpaee:.2f}')
+    wins = [(event_crop(np.array(w).T).T, start, stop) for w, start, stop in
+            list(frame_generator(dataset.events, frames))[:EVAL_BLOCK]]
+    block = ([w for w, _, _ in wins], [s for _, s, _ in wins],
+             [t for _, _, t in wins])
+    of(*block)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile() as prof:
+        of(*block)
+        torch.cuda.synchronize()
+    prof_wall = time.perf_counter() - t0
+    ops = device_ops(prof.key_averages())
+    busy_ms = sum(e.device_time_total for e in ops) / 1e3
+    t0 = time.perf_counter()
+    for _ in range(3):
+        of(*block)
+    block_ms = (time.perf_counter() - t0) / 3 * 1e3
+    print(f'  one block of {EVAL_BLOCK} windows: {block_ms:.3f} ms without '
+          f'the profiler, device busy {busy_ms:.3f} ms in '
+          f'{sum(e.count for e in ops)} device ops: '
+          f'{100 * busy_ms / block_ms:.1f}% busy ({prof_wall * 1e3:.3f} ms '
+          'under the profiler); busiest: ' + '; '.join(
+              f'{e.device_time_total / 1e3:.3f} ms {e.key[:40]}'
+              for e in sorted(ops, key=lambda e: -e.device_time_total)[:4]))
+
+    # the card's flows against the same weights' on the CPU, two windows
+    on_cpu = OpticalFlow(cfg.test_shape, model=staged.model, device='cpu')
+    pair = tuple(part[:2] for part in block)
+    got, want = of(*pair, return_all=True), on_cpu(*pair, return_all=True)
+    for g, w in zip(got, want):
+        scale = float(np.abs(w).max())
+        check_close(f'{g.shape[1]}x{g.shape[2]} flow, card vs CPU',
+                    torch.from_numpy(g), torch.from_numpy(w), 1e-4,
+                    1e-4 * scale)
+    staged.model.unlink()
+    return main_counts, eval_counts
+
+
+def deep_phase(vox_args, valid, capacity, bhw, host_batch, device, counters,
+               shapes):
+    """Phase 16: K1 at depth DEEP on the bench batch, and one recipe step
+    at that depth; returns the numbers for the kernels line."""
+    from dvs_of_training_framework_tpu_torch.losses import MultiScaleLoss
+    from dvs_of_training_framework_tpu_torch.models import Model
+    from dvs_of_training_framework_tpu_torch.ops import voxel_cuda
+    from dvs_of_training_framework_tpu_torch.training import (
+        construct_optimizer, create_train_state, make_train_step)
+    B, H, W = bhw
+    w = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(capacity, DEEP)).astype(np.float32)).to(device)
+    g = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(B, H, W, DEEP)).astype(np.float32)).to(device)
+    print(f'[16] K1 at depth {DEEP} on the bench batch')
+    for weights in (w, w.bfloat16()):
+        grids, grads = [], []
+        for _ in range(20):
+            wr = weights.clone().requires_grad_(True)
+            grid = voxel_cuda.voxelize(*vox_args, wr, valid, B, H, W)
+            grads.append(torch.autograd.grad(grid, wr, g)[0])
+            grids.append(grid.detach())
+        wt = weights.cpu().requires_grad_(True)
+        twin = one_thread_twin(voxel_cuda.plain, *vox_args, wt, valid, B, H,
+                               W)
+        (twin_dw,) = torch.autograd.grad(twin, wt, g.cpu())
+        same = sum(bits_equal(x, twin) for x in grids)
+        same_dw = sum(bits_equal(x, twin_dw) for x in grads)
+        print(f'  {weights.dtype} weights: {same} of 20 forwards and '
+              f'{same_dw} of 20 backwards equal the one-thread CPU twin bit '
+              'for bit')
+        if same != 20 or same_dw != 20:
+            raise AssertionError(f'K1 at depth {DEEP} differs from its twin')
+    del grids, grads, twin, twin_dw
+    n_valid = int(valid.sum())
+    put_at = ((vox_args[2].long() * H + vox_args[1].long()) * W
+              + vox_args[0].long())[valid][:, None] * DEEP \
+        + torch.arange(DEEP, device=device)
+    put_at, put_values = put_at.reshape(-1), w[valid].reshape(-1)
+    k_ms, p_ms, lib_ms = time_pair(
+        lambda: voxel_cuda.voxelize(*vox_args, w, valid, B, H, W),
+        lambda: voxel_cuda.plain(*vox_args, w, valid, B, H, W),
+        lambda: torch.zeros(B * H * W * DEEP, device=device).index_put_(
+            (put_at,), put_values, accumulate=True))
+    b_ms, b_kind, _ = bound(nbytes=13 * capacity + 4 * n_valid * DEEP
+                            + 4 * B * H * W * DEEP)
+    print(f'  voxelize_fwd at depth {DEEP}: kernel {k_ms:.4f} ms, plain '
+          f'{p_ms:.4f} ms, index_put_ {lib_ms:.4f} ms; bound {b_ms:.4f} ms '
+          f'({b_kind}), kernel at {100 * b_ms / k_ms:.1f}% of it')
+    del put_at, put_values, w, g
+
+    # one production-recipe training step at this depth
+    model = Model(event_representation_depth=DEEP, dtype='bfloat16',
+                  generator=torch.Generator().manual_seed(0), device=device)
+    args = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
+                           half_life=20000, num_warmup_steps=0,
+                           training_steps=1000, rs=0.5)
+    step_fn = make_train_step(model, MultiScaleLoss(shapes, bf16x2=True),
+                              construct_optimizer(args, model), LOSS_WEIGHTS,
+                              1)
+    reset(counters)
+    state, (loss, _) = step_fn(create_train_state(), host_batch.to(device))
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    print(f'  one recipe step at depth {DEEP}: loss {loss.item():.5f}; '
+          f'launches {counts}')
+    if not torch.isfinite(loss) or counts['voxelize_fwd'] != 1 \
+            or counts['voxelize_bwd'] != 1:
+        raise AssertionError(f'the recipe step at depth {DEEP} failed')
+    return {'depth': DEEP, 'ms': k_ms, 'plain_ms': p_ms,
+            'library_ms': lib_ms, 'bound_ms': b_ms, 'bound_by': b_kind}
 
 
 def main():
@@ -1233,16 +1607,29 @@ def main():
 
     # --- 11. to 13. the loop, resume and the EMA export ------------------
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as out:
-        launches['loop'] = loop_phases(Path(out), collated, capacity, device,
-                                       card, counters,
-                                       bare_ms['recipe'][True])
+        launches['loop'], loop_step_ms = loop_phases(
+            Path(out), collated, capacity, device, card, counters,
+            bare_ms['recipe'][True])
+    torch.cuda.empty_cache()
+
+    # --- 14. and 15. the data path, main() and the evaluation CLI ---------
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_data_') as out:
+        launches['main'], launches['eval'] = data_phases(
+            Path(out), capacity, device, card, counters, loop_step_ms)
+    torch.cuda.empty_cache()
+
+    # --- 16. K1 at depth 64 ------------------------------------------------
+    deep = deep_phase(vox_args, valid, capacity, (B, H, W), host[0], device,
+                      counters, shapes)
+    vox_entry = next(k for k in kernels if k['name'] == 'voxelize_fwd')
+    vox_entry['depth_64'] = deep
 
     for entry in kernels:
         name = entry['name']
-        entry['launches'] = launches['recipe'][name] + launches['loop'][name]
-        entry['recipe_launches'] = launches['recipe'][name]
-        entry['loop_launches'] = launches['loop'][name]
-        entry['golden_launches'] = launches['golden'][name]
+        entry['launches'] = sum(launches[path][name] for path in (
+            'recipe', 'loop', 'main', 'eval'))
+        for path in ('recipe', 'loop', 'main', 'eval', 'golden'):
+            entry[f'{path}_launches'] = launches[path][name]
 
     jax_side = sorted(m for m in sys.modules if m.split('.')[0] in (
         'jax', 'flax', 'optax', 'dvs_of_training_framework_tpu', 'bench',

@@ -32,8 +32,12 @@
 //      loaded at once; a run longer than kLongRun (a hot pixel) is summed
 //      by a thread per channel instead, from weights the block stages in
 //      shared memory kStage events at a time.  The block writes the tile
-//      once with 16-byte stores.  The sort ranks each run of 256 keys
-//      against each other and merges the runs pairwise by rank (a binary
+//      once with 16-byte stores.  Any number of channels: the sort is done
+//      once, and above kChannelGroup channels the sums and the write run
+//      over groups of kChannelGroup, so the shared-memory tile stays
+//      [256, 32] floats at most; that case is an instance of its own, and
+//      up to kChannelGroup channels compile to the one pass with no group
+//      arithmetic.  The sort ranks each run of 256 keys against each other and merges the runs pairwise by rank (a binary
 //      search) in shared memory, up to kChunk keys; a larger tile is
 //      sorted in chunks of kChunk, which are then merged in global
 //      scratch, so a hot pixel costs a sort, not n^2 comparisons, and its
@@ -64,7 +68,7 @@ constexpr int kLongRun = 16;          // a longer run is summed by channel
 constexpr int kStage = kThreads;      // sorted events staged at a time
 constexpr int kTileBlocksPerSM = 6;   // tile blocks an SM holds at once
 constexpr int kGroup = 16;            // channels a thread loads at a time
-constexpr int kMaxChannels = 32;
+constexpr int kChannelGroup = 32;     // channels a tile sums at a time
 constexpr int kScanPer = 8;           // counts a thread scans at a time
 
 // flat cell (p, y, x) of an event, or -1 if it lies outside the grid
@@ -291,25 +295,41 @@ __device__ void store_tile(float* dst, const float* src, int n) {
   }
 }
 
+// Writes a channel group of a tile: the cg floats of each of `cells`
+// cells of src (shared memory, [cells, cg]) to dst, where a cell's
+// channels lie C floats after the previous cell's.
+__device__ void store_group(float* dst, const float* src, int cells, int cg,
+                            int C) {
+  for (int i = threadIdx.x; i < cells * cg; i += kThreads) {
+    const int cell = i / cg;
+    dst[static_cast<long long>(cell) * C + (i - cell * cg)] = src[i];
+  }
+}
+
 // Bytes of each of voxelize_tile_kernel's two key buffers, which also
-// stage weights once the keys are sorted.
-template <typename Key> __host__ __device__ int tile_buffer_bytes(int C) {
+// stage a channel group's weights (`width` channels) once the keys are
+// sorted.
+template <typename Key> __host__ __device__ int tile_buffer_bytes(int width) {
   const int keys = kChunk * static_cast<int>(sizeof(Key));
-  const int weights = kStage * C * static_cast<int>(sizeof(float));
+  const int weights = kStage * width * static_cast<int>(sizeof(float));
   return keys > weights ? keys : weights;
 }
 
-// Dynamic shared memory of voxelize_tile_kernel.
+// Dynamic shared memory of voxelize_tile_kernel for C channels.
 template <typename Key> int tile_smem_bytes(int C) {
-  return kTileCells * C * static_cast<int>(sizeof(float)) +
-         2 * tile_buffer_bytes<Key>(C);
+  const int width = C < kChannelGroup ? C : kChannelGroup;
+  return kTileCells * width * static_cast<int>(sizeof(float)) +
+         2 * tile_buffer_bytes<Key>(width);
 }
 
 // Step 2, a block per tile, a thread per cell (kThreads == kTileCells).
 // offsets and region: step 1's, of `blocks` bucket blocks (<= kThreads);
 // scratch: [2 * E] keys, where a tile of more than kChunk events takes
 // 2 n keys at *scratch_top for its merge; out: float32 [P, H, W, C].
-template <typename Key, typename T>
+// kGrouped: C > kChannelGroup, summed and written a channel group at a
+// time; the other instance (the bench's 9 channels) is the one pass over
+// all C channels with no group arithmetic.
+template <typename Key, typename T, bool kGrouped>
 __global__ void __launch_bounds__(kThreads, kTileBlocksPerSM)
 voxelize_tile_kernel(const T* __restrict__ w,
                      const int32_t* __restrict__ offsets,
@@ -318,11 +338,12 @@ voxelize_tile_kernel(const T* __restrict__ w,
                      int C, int per_row, int tiles, int blocks, int per,
                      int event_bits) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);               // [cells, C]
-  // two buffers of kChunk keys, or of kStage weights of C channels
-  Key* keys = reinterpret_cast<Key*>(acc + kTileCells * C);
+  const int width = kGrouped ? kChannelGroup : C;  // channels of a group
+  float* acc = reinterpret_cast<float*>(smem);      // [cells, width]
+  // two buffers of kChunk keys, or of kStage weights of a channel group
+  Key* keys = reinterpret_cast<Key*>(acc + kTileCells * width);
   Key* other = reinterpret_cast<Key*>(reinterpret_cast<unsigned char*>(keys) +
-                                      tile_buffer_bytes<Key>(C));
+                                      tile_buffer_bytes<Key>(width));
   __shared__ int32_t run_start[kTileCells], run_end[kTileCells];
   __shared__ int32_t long_cells[kTileCells];
   __shared__ int n_long, long_from, long_to;
@@ -392,48 +413,64 @@ voxelize_tile_kernel(const T* __restrict__ w,
   }
   __syncthreads();
 
-  // A thread sums its cell's run, event by event in ascending order.  A
-  // long run (a hot pixel) goes to the pass below.
   const Key mask = (static_cast<Key>(1) << event_bits) - 1;
-  if (l < cells) {
-    const int j0 = run_start[l], j1 = run_end[l];
-    float* sum = acc + l * C;
-    for (int c = 0; c < C; ++c) sum[c] = 0.0f;
-    if (j1 - j0 > kLongRun) {
-      long_cells[atomicAdd(&n_long, 1)] = l;
-      atomicMin(&long_from, j0);
-      atomicMax(&long_to, j1);
-    } else {
-      for (int j = j0; j < j1; ++j)
-        for_each_channel(w + static_cast<long long>(sorted[j] & mask) * C, C,
-                         [&](int c, float v) { sum[c] += v; });
-    }
-  }
-  __syncthreads();
-  // The long runs, kStage sorted events at a time: the block stages their
-  // weights in shared memory, a thread an event (kStage == kThreads), then
-  // a thread a (long run, channel) adds the part of its run in the window,
-  // in ascending order.
-  for (int s = long_from; s < long_to; s += kStage) {
-    const int m = min(kStage, long_to - s);
-    if (l < m) {
-      float* row = stage + l * C;
-      for_each_channel(w + static_cast<long long>(sorted[s + l] & mask) * C,
-                       C, [&](int c, float v) { row[c] = v; });
+  // Channels [c0, c0 + cg) of every cell at a time, summed into acc
+  // ([cells, cg]) and written out; one pass unless kGrouped.
+  for (int c0 = 0; c0 < (kGrouped ? C : 1); c0 += kChannelGroup) {
+    const int cg = kGrouped ? min(kChannelGroup, C - c0) : C;
+    const T* w_group = w + c0;
+    // A thread sums its cell's run, event by event in ascending order.  A
+    // long run (a hot pixel), listed in the first group, goes to the
+    // pass by channel below.
+    if (l < cells) {
+      const int j0 = run_start[l], j1 = run_end[l];
+      float* sum = acc + l * cg;
+      for (int c = 0; c < cg; ++c) sum[c] = 0.0f;
+      if (j1 - j0 > kLongRun) {
+        if (c0 == 0) {
+          long_cells[atomicAdd(&n_long, 1)] = l;
+          atomicMin(&long_from, j0);
+          atomicMax(&long_to, j1);
+        }
+      } else {
+        for (int j = j0; j < j1; ++j)
+          for_each_channel(
+              w_group + static_cast<long long>(sorted[j] & mask) * C, cg,
+              [&](int c, float v) { sum[c] += v; });
+      }
     }
     __syncthreads();
-    for (int k = threadIdx.x; k < n_long * C; k += kThreads) {
-      const int cell = long_cells[k / C], c = k - k / C * C;
-      const int j1 = min(run_end[cell], s + m) - s;
-      float a = acc[cell * C + c];
+    // The long runs, kStage sorted events at a time: the block stages
+    // their weights in shared memory, a thread an event (kStage ==
+    // kThreads), then a thread a (long run, channel) adds the part of its
+    // run in the window, in ascending order.
+    for (int s = long_from; s < long_to; s += kStage) {
+      const int m = min(kStage, long_to - s);
+      if (l < m) {
+        float* row = stage + l * cg;
+        for_each_channel(
+            w_group + static_cast<long long>(sorted[s + l] & mask) * C, cg,
+            [&](int c, float v) { row[c] = v; });
+      }
+      __syncthreads();
+      for (int k = threadIdx.x; k < n_long * cg; k += kThreads) {
+        const int cell = long_cells[k / cg], c = k - k / cg * cg;
+        const int j1 = min(run_end[cell], s + m) - s;
+        float a = acc[cell * cg + c];
 #pragma unroll 8
-      for (int j = max(run_start[cell], s) - s; j < j1; ++j)
-        a += stage[j * C + c];
-      acc[cell * C + c] = a;
+        for (int j = max(run_start[cell], s) - s; j < j1; ++j)
+          a += stage[j * cg + c];
+        acc[cell * cg + c] = a;
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    if (kGrouped) {
+      store_group(dst + c0, acc, cells, cg, C);
+      __syncthreads();   // the next group rewrites acc and stage
+    } else {
+      store_tile(dst, acc, n_out);
+    }
   }
-  store_tile(dst, acc, n_out);
 }
 
 template <typename T>
@@ -494,11 +531,12 @@ cudaError_t launch_fwd(const void* x, const void* y, const void* plane,
       offsets, keys, scratch_top, E, per, P, H, W, per_row, T_, event_bits);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int smem = tile_smem_bytes<Key>(C);
-  err = cudaFuncSetAttribute(voxelize_tile_kernel<Key, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  auto tile_kernel = C > kChannelGroup ? voxelize_tile_kernel<Key, T, true>
+                                       : voxelize_tile_kernel<Key, T, false>;
+  err = cudaFuncSetAttribute(
+      tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  voxelize_tile_kernel<Key, T><<<T_, kThreads, smem, s>>>(
+  tile_kernel<<<T_, kThreads, smem, s>>>(
       static_cast<const T*>(w), offsets, keys, keys + E, scratch_top, out, W,
       C, per_row, T_, blocks, per, event_bits);
   return cudaGetLastError();
@@ -518,7 +556,7 @@ cudaError_t launch_bwd(const void* x, const void* y, const void* plane,
 }  // namespace
 
 // The forward.  x, y, plane: int32 [E]; valid: bool [E]; w: [E, C],
-// bfloat16 if w_bf16 else float32, C <= 32; T = P * H * ceil(W / 256)
+// bfloat16 if w_bf16 else float32, any C; T = P * H * ceil(W / 256)
 // tiles, at most kMaxTiles; offsets: int32 [blocks, T + 1], blocks =
 // voxelize_fwd_blocks(E); keys: [3 * E], int64 if key64 else int32 (the
 // wrapper picks int64 where 8 bits of cell and the bits of E - 1 exceed
@@ -529,7 +567,7 @@ extern "C" int voxelize_fwd(const void* x, const void* y, const void* plane,
                             void* keys, void* scratch_top, void* out,
                             long long E, int C, int P, int H, int W,
                             int w_bf16, int key64, void* stream) {
-  if (!sizes_fit(E, C, P, H, W) || C > kMaxChannels || 3 * E > INT_MAX)
+  if (!sizes_fit(E, C, P, H, W) || 3 * E > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   int event_bits = 1;
   while ((1LL << event_bits) < E) ++event_bits;

@@ -11,9 +11,9 @@ Produces/consumes the same HDF5 layout as the reference
 
 Everything here is host-side NumPy; nothing depends on JAX.
 
-The port's copy of ``dvs_of_training_framework_tpu/data/codec.py``. h5py is
-imported by the functions that read and write files, so the module imports
-without it.
+The port's copy of ``dvs_of_training_framework_tpu/data/codec.py``.  It
+writes shards through ``store.open_file`` (the npy store) and reads any
+descriptor with h5py's interface, so the module imports without h5py.
 """
 from pathlib import Path
 import typing
@@ -21,6 +21,7 @@ import typing
 import numpy as np
 
 from ..utils.common import cumsum_with_prefix
+from . import store
 
 
 Batch_t = typing.Dict[str, typing.Any]
@@ -276,7 +277,7 @@ def decode_quantized_batch(batch: Batch_t) -> Batch_t:
 
 
 def write_encoded_batch(path: Path, batch: Batch_t):
-    """Write an encoded batch as nested HDF5 groups
+    """Write an encoded batch as nested groups of the npy store
     (reference utils/dataset.py:376-397)."""
     def write_element(descriptor, data, name):
         if isinstance(data, dict):
@@ -286,8 +287,7 @@ def write_encoded_batch(path: Path, batch: Batch_t):
             return
         descriptor.create_dataset(name, data=np.asarray(data))
 
-    import h5py
-    with h5py.File(path, 'w') as f:
+    with store.open_file(path, 'w') as f:
         for k, v in batch.items():
             write_element(f, v, k)
 

@@ -1,8 +1,8 @@
 """Dataloader facade: raw vs preprocessed, train vs val parameterisation.
 
 Mirrors the reference facade (utils/dataloader.py): the hardcoded MVSEC
-split (train = outdoor_day2, val = outdoor_day1), docker-aware data roots,
-and the raw-DataLoader / PreprocessedDataloader choice.  Host batch
+split (train = outdoor_day2, val = outdoor_day1), the data root, and the
+raw-DataLoader / PreprocessedDataloader choice.  Host batch
 assembly replaces torch's DataLoader with a thread-pooled loader
 (HDF5/NumPy release the GIL for the heavy parts) plus a bounded prefetch
 queue that keeps the TPU fed.
@@ -11,7 +11,6 @@ The port's copy of ``dvs_of_training_framework_tpu/data/dataloader.py``.
 """
 import itertools
 import os
-from pathlib import Path
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -19,30 +18,18 @@ from types import SimpleNamespace
 
 import numpy as np
 
-from ..utils.common import is_inside_docker
+from ..utils.common import data_root
 from .collate import collate_dense_wrapper, collate_wrapper
 from .dataset import Dataset, IterableDataset
 from .preprocessed import PreprocessedDataloader
 
-script_dir = Path(__file__).resolve().parent.parent.parent
-
-
 def choose_data_path(args):
-    """Set args.data_path to the MVSEC training-data root.
+    """Set args.data_path to the MVSEC training-data root, $DVS_DATA_PATH.
 
-    Resolution order: $DVS_DATA_PATH override, docker mount, sibling
-    ``data/training/mvsec`` directory.
+    The JAX package falls back to a docker mount and to a ``data/``
+    directory beside the checkout; the port requires the variable.
     """
-    import os
-    override = os.environ.get('DVS_DATA_PATH')
-    if override:
-        data_path = Path(override)
-    elif is_inside_docker():
-        data_path = Path('/data/training/mvsec')
-    else:
-        base_dir = (script_dir / '..').resolve()
-        data_path = base_dir / 'data' / 'training' / 'mvsec'
-    args.data_path = data_path
+    args.data_path = data_root('DVS_DATA_PATH')
     return args
 
 

@@ -14,9 +14,9 @@ handling — but keeps the reference's injectable augmentation parameters
 (idx, k, is_flip, angle, box, seq_length) through ``__getitem__`` so
 augmentation stays samplable in production and deterministic in tests.
 
-The port's copy of ``dvs_of_training_framework_tpu/data/dataset.py``. h5py
-is imported by the functions that read files, so the module imports without
-it.
+The port's copy of ``dvs_of_training_framework_tpu/data/dataset.py``.  It
+reads every file through ``store.open_file`` (an npy store, or an HDF5
+file read with h5py imported inside), so the module imports without h5py.
 """
 import random
 from dataclasses import dataclass
@@ -24,14 +24,14 @@ from pathlib import Path
 
 import numpy as np
 
+from . import store
 from .augmentation import (EventCrop, ImageCentralCrop, ImageRandomCrop,
                            PlanarRotation)
 
 
 def read_info(filename):
     """Read ``{sequence_name: start_time}`` from an info HDF5 file."""
-    import h5py
-    with h5py.File(filename, 'r') as f:
+    with store.open_file(filename, 'r') as f:
         names = f['set_name'][()]
         starts = f['start_time'][()]
     return {name.decode(): float(t) for name, t in zip(names, starts)}
@@ -62,10 +62,9 @@ def _load_window(paths):
     element's ``stop``; intermediate frames are discarded (collapse-k
     semantics).  Raises if the elements are not temporally contiguous.
     """
-    import h5py
     chunks, spans, frames = [], [], []
     for path in paths:
-        with h5py.File(path, 'r') as f:
+        with store.open_file(path, 'r') as f:
             chunks.append(f['events'][()])
             spans.append((float(f['start'][()]), float(f['stop'][()])))
             frames.append((np.asarray(f['image1']), np.asarray(f['image2'])))

@@ -20,7 +20,9 @@ sit outside the cache.  The deterministic token-driven tests in
 tests/utils/test_file_iterator.py pin the step-by-step cache states.
 
 The port's copy of
-``dvs_of_training_framework_tpu/data/file_iterators.py``.
+``dvs_of_training_framework_tpu/data/file_iterators.py``.  A shard of the
+npy store is a directory (``data/store.py``), so the loader copies a
+directory as a tree and a cached directory is removed as one.
 """
 import queue
 import shutil
@@ -60,7 +62,7 @@ class ReleasableFile:
         self.in_use = True
 
     def _assert_exists(self):
-        assert self.filename.is_file(), \
+        assert self.filename.exists(), \
             f"File {self.filename} doesn't exist"
 
     @property
@@ -83,7 +85,10 @@ class ReleasableFile:
     def remove(self):
         self._assert_exists()
         assert not self.in_use, 'Currently used file cannot be removed'
-        self.filename.unlink()
+        if self.filename.is_dir():
+            shutil.rmtree(self.filename)
+        else:
+            self.filename.unlink()
 
 
 class FileIterator:
@@ -103,15 +108,20 @@ class FileIterator:
 
 
 class FileLoader:
-    """Copy a file into the cache dir under a unique temporary name."""
+    """Copy a file (or an npy-store directory) into the cache dir under a
+    unique temporary name."""
 
     def __init__(self, cache_dir):
         self.cache_dir = Path(cache_dir)
         self.cache_dir.mkdir(exist_ok=True, parents=True)
 
     def __call__(self, filename):
-        with tempfile.NamedTemporaryFile(dir=self.cache_dir,
-                                         suffix=Path(filename).suffix,
+        suffix = Path(filename).suffix
+        if Path(filename).is_dir():
+            cached = Path(tempfile.mkdtemp(dir=self.cache_dir, suffix=suffix))
+            shutil.copytree(filename, cached, dirs_exist_ok=True)
+            return cached
+        with tempfile.NamedTemporaryFile(dir=self.cache_dir, suffix=suffix,
                                          delete=False) as f:
             cached = Path(f.name)
         shutil.copyfile(filename, cached)

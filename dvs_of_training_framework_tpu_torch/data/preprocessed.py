@@ -8,29 +8,38 @@ the loader tracks its own shard position instead of re-deriving sizes from
 cached file handles on every read.
 
 The port's copy of ``dvs_of_training_framework_tpu/data/preprocessed.py``.
-h5py, PyYAML and tqdm are imported by the functions that use them, so the
-module imports without them.
+It opens every shard through ``store.open_file`` (an npy store, or an
+HDF5 file read with h5py imported inside), and writes the shard-size
+sidecar as JSON; its progress bar is tqdm's where tqdm is installed and
+none where it is not (``utils/progress.py``), so the module imports and
+reads without h5py, PyYAML and tqdm.
 """
+import json
 from pathlib import Path
 
 import numpy as np
 
-from . import codec
+from . import codec, store
+from ..utils.progress import progress as show
 from .file_iterators import create_file_iterator
 
 
 def _shard_sample_count(shard_path):
     """Number of samples in an encoded shard, memoised in a ``.info``
-    yaml sidecar next to the shard."""
-    import h5py
-    import yaml
+    sidecar next to the shard, written as JSON (which YAML readers read
+    too).  A sidecar that is not JSON (the JAX package writes ``size: n``)
+    is left as it is and the shard counted."""
     shard_path = Path(shard_path)
     sidecar = shard_path.with_suffix('.info')
     if sidecar.is_file():
-        return int(yaml.safe_load(sidecar.read_text())['size'])
-    with h5py.File(shard_path, 'r') as f:
+        try:
+            return int(json.loads(sidecar.read_text())['size'])
+        except json.JSONDecodeError:
+            with store.open_file(shard_path, 'r') as f:
+                return len(f['elements_per_sample'])
+    with store.open_file(shard_path, 'r') as f:
         count = len(f['elements_per_sample'])
-    sidecar.write_text(yaml.dump({'size': count}))
+    sidecar.write_text(json.dumps({'size': count}))
     return count
 
 
@@ -49,10 +58,9 @@ def per_sample_event_counts(path) -> np.ndarray:
     if not files:
         raise FileNotFoundError(
             f'No preprocessed dataset at {path} (no .hdf5 files)')
-    import h5py
     counts = []
     for f in files:
-        with h5py.File(f, 'r') as shard:
+        with store.open_file(f, 'r') as shard:
             if 'events' not in shard:
                 raise ValueError(
                     'per-sample event counts require raw event shards; '
@@ -83,10 +91,9 @@ def per_sample_channel_counts(path) -> np.ndarray:
     if not files:
         raise FileNotFoundError(
             f'No preprocessed dataset at {path} (no .hdf5 files)')
-    import h5py
     counts = []
     for f in files:
-        with h5py.File(f, 'r') as shard:
+        with store.open_file(f, 'r') as shard:
             if 'channels_per_sample' not in shard:
                 raise ValueError(
                     'per-sample channel counts require quantized (dense) '
@@ -161,9 +168,8 @@ class PreprocessedDataloader:
 
         progress = self.files
         if show_progress:
-            import tqdm
-            progress = tqdm.tqdm(progress,
-                                 desc='Reading information about the dataset')
+            progress = show(progress,
+                            desc='Reading information about the dataset')
         self._shard_sizes = [_shard_sample_count(f) for f in progress]
         self.length = int(sum(self._shard_sizes))
 
@@ -252,7 +258,6 @@ class PreprocessedDataloader:
 
     def __next__(self):
         """Read the next batch, spanning shard boundaries when needed."""
-        import h5py
         pieces = []
         wanted = self.batch_size
         while wanted > 0:
@@ -260,7 +265,7 @@ class PreprocessedDataloader:
             take = min(wanted, available)
             if take > 0:
                 stop = self.sample_index + take
-                with h5py.File(self.current_file.name, 'r') as f:
+                with store.open_file(self.current_file.name, 'r') as f:
                     pieces.append(self._read_slice(f, self.sample_index,
                                                    stop))
                 self.sample_index = stop

@@ -2,7 +2,8 @@
 
 Counterpart of the raw, fixed-capacity path of
 ``dvs_of_training_framework_tpu/data/schema.py`` (``EventBuffer``,
-``Batch``, ``pad_events``, ``pad_batch``).  The dataclasses hold numpy
+``Batch``, ``pad_events``, ``pad_batch``) and its capacity buckets
+(``default_buckets``, ``round_up_to_bucket``).  The dataclasses hold numpy
 arrays on the host and torch tensors on the device; ``.to(device)``
 moves a host batch over, and ``.pin_memory()`` first copies it into
 page-locked host memory, from which that copy can run asynchronously.
@@ -93,6 +94,25 @@ class Batch:
                      timestamps=_pin(self.timestamps),
                      sample_idx=_pin(self.sample_idx),
                      images=_pin(self.images), size=self.size)
+
+
+def round_up_to_bucket(n: int, buckets) -> int:
+    """Smallest bucket >= n; buckets is a sorted iterable of capacities."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise OverflowError(f'{n} events exceed the largest bucket {buckets[-1]}')
+
+
+def default_buckets(capacity: int):
+    """Power-of-two bucket ladder up to ``capacity`` (limits recompiles)."""
+    buckets = []
+    b = 4096
+    while b < capacity:
+        buckets.append(b)
+        b *= 2
+    buckets.append(capacity)
+    return buckets
 
 
 def pad_events(events: dict, batch_size: int, capacity: int) -> EventBuffer:

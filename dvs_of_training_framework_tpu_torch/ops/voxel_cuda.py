@@ -7,7 +7,8 @@ always goes through the kernel, which raises on what it does not take; a
 CPU tensor goes to the twin.  Unlike the TPU kernel this one needs no
 plane-sorted events.  The forward adds each cell's events in ascending
 event order, as the twin does, so its grid is the same on every launch
-and equals the twin's on the CPU bit for bit.  The weights are float32,
+and equals the twin's on the CPU bit for bit, for any number of channels
+(the forward sums them 32 at a time).  The weights are float32,
 or bfloat16 in the bf16 recipe; the grid is float32 either way, and the
 weights' gradient comes back in the weights' dtype, as the JAX kernel
 returns it.
@@ -24,7 +25,6 @@ plain = voxelize_scatter
 
 _WEIGHT_DTYPES = (torch.float32, torch.bfloat16)
 TILE_CELLS = 256     # cells of one image row that the forward sums on chip
-MAX_CHANNELS = 32    # channels the forward's shared-memory tile holds
 MAX_TILES = 49152    # tiles whose counts one block holds in shared memory
 
 
@@ -33,10 +33,9 @@ def _check_inputs(x, y, plane, weights, valid):
         raise ValueError(f'weights must be float32 or bfloat16 [E, C], got '
                          f'{weights.dtype} {tuple(weights.shape)}')
     E = weights.shape[0]
-    if E == 0 or not 0 < weights.shape[1] <= MAX_CHANNELS:
-        raise ValueError(f'voxelize needs at least one event and 1 to '
-                         f'{MAX_CHANNELS} channels, got {E} and '
-                         f'{weights.shape[1]}')
+    if E == 0 or weights.shape[1] == 0:
+        raise ValueError(f'voxelize needs at least one event and one '
+                         f'channel, got {E} and {weights.shape[1]}')
     for name, t, dtype in (('x', x, torch.int32), ('y', y, torch.int32),
                            ('plane', plane, torch.int32),
                            ('valid', valid, torch.bool)):

@@ -1,14 +1,17 @@
-"""Shared helpers: cumulative sums, run provenance, docker detection.
+"""Shared helpers: cumulative sums, run provenance, data roots.
 
 Parity targets in the reference: utils/common.py (cumsum_with_prefix 26-50,
-provenance 97-237, is_inside_docker 13-14, mean 22-23, to_tensor 240-259).
+provenance 97-237, mean 22-23, to_tensor 240-259).
 The TPU build keeps host-side batch assembly in NumPy, so these helpers are
 NumPy-first; ``to_array`` replaces torch ``to_tensor``.
 
-The port's copy of ``dvs_of_training_framework_tpu/utils/common.py``.
-PyYAML is imported by the two functions that use it, so the module imports
-without it.
+The port's copy of ``dvs_of_training_framework_tpu/utils/common.py``.  It
+writes the provenance document as JSON (which YAML readers read too), so
+it needs no PyYAML for its own runs; a YAML document of an older run is
+read with PyYAML imported inside the parser.  It records no revision
+where ``git`` is not installed.
 """
+import json
 import os
 from pathlib import Path
 import re
@@ -19,8 +22,18 @@ from typing import Dict, Union
 import numpy as np
 
 
-def is_inside_docker():
-    return 'INSIDE_DOCKER' in os.environ and bool(os.environ['INSIDE_DOCKER'])
+def data_root(variable):
+    """The data directory named by the environment variable ``variable``.
+
+    The JAX package falls back to a docker mount or to a ``data/``
+    directory beside the checkout; the port reads nothing outside its
+    checkout unless told, so it requires the variable.
+    """
+    root = os.environ.get(variable)
+    if not root:
+        raise RuntimeError(f'${variable} is not set: point it at the data '
+                           'directory')
+    return Path(root)
 
 
 def mean(values):
@@ -48,12 +61,12 @@ def get_commithash(cwd=None):
 # --- Run provenance ---------------------------------------------------------
 #
 # Every output directory carries a self-describing ``parameters`` file (one
-# structured YAML document: command line, git revisions of the framework and
+# structured JSON document: command line, git revisions of the framework and
 # the model plugin, full argument set).  On resume the stored document is
 # compared against the current run so a checkpoint is never silently
 # continued with different code or different hyper-parameters — the same
 # safety gate as reference utils/common.py:97-237, redesigned around a
-# single YAML document instead of a delimited text format.
+# single JSON document instead of a delimited text format.
 
 PROVENANCE_FILENAME = 'parameters'
 
@@ -74,12 +87,13 @@ def _yaml_friendly(value):
 def _optional_commithash(cwd=None):
     try:
         return get_commithash(cwd)
-    except subprocess.CalledProcessError:
+    except (subprocess.CalledProcessError, FileNotFoundError):
         return None
 
 
 def collect_execution_info(args):
-    """Build the provenance document for the current run (a YAML string)."""
+    """Build the provenance document for the current run (a JSON
+    string)."""
     revisions = {'framework': _optional_commithash()}
     plugin_dir = vars(args).get('flownet_path')
     if plugin_dir is not None:
@@ -88,13 +102,12 @@ def collect_execution_info(args):
         # separate revision when the plugin is its own checkout
         if plugin_hash is not None and plugin_hash != revisions['framework']:
             revisions['model'] = plugin_hash
-    import yaml
     document = {
         'command': ' '.join(sys.argv),
         'revisions': revisions,
         'arguments': {k: _yaml_friendly(v) for k, v in vars(args).items()},
     }
-    return yaml.dump(document)
+    return json.dumps(document, indent=1, default=str)
 
 
 def file_for_execution_info(out_dir):
@@ -111,8 +124,13 @@ def read_execution_info(out_dir):
 
 
 def _parse_execution_info(execution_info):
-    import yaml
-    document = yaml.safe_load(execution_info)
+    try:
+        document = json.loads(execution_info)
+    except json.JSONDecodeError:
+        # a YAML document, as the JAX package and the port before its
+        # JSON provenance wrote them
+        import yaml
+        document = yaml.safe_load(execution_info)
     if not isinstance(document, dict) or 'arguments' not in document:
         raise ValueError('unrecognised provenance document format')
     return document

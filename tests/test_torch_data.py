@@ -130,14 +130,16 @@ def write_shards(package, out, samples_per_file=3, num_files=2):
 
 @pytest.mark.parametrize('reader', ['jax', 'port'])
 def test_preprocessed_shards_read_alike(tmp_path, reader):
-    """Shards written by either package read back, through either
-    package's loader, as the same batches, across the file boundary and
-    after a seek."""
-    loader_cls = PACKAGES[reader][-1].PreprocessedDataloader
+    """Shards written by either package read back as the same batches,
+    across the file boundary and after a seek: the port's shards (the npy
+    store) through the port's loader, against the JAX package's HDF5
+    shards through ``reader``'s loader."""
     runs = {}
     for writer in ('jax', 'port'):
         out = tmp_path / writer
         write_shards(writer, out)
+        loader_cls = PACKAGES[reader if writer == 'jax'
+                              else 'port'][-1].PreprocessedDataloader
         loader = loader_cls(out, batch_size=2, is_raw=True,
                             show_progress=False)
         batches = [next(loader), next(loader)]

@@ -8,7 +8,13 @@ machine lacks them), and fail if any module of the JAX package
 - importing every module of the port and running one CPU training step of
   the golden configuration and one of the bf16 recipe;
 - the training CLI's ``run`` training 2 steps on the CPU from an in-memory
-  loader, checkpointing, and a second ``run`` resuming and taking a third.
+  loader, checkpointing, and a second ``run`` resuming and taking a third;
+- the whole data path and both CLIs' ``main``: the port's tools build a
+  tiny synthetic set in the npy store (raw ``varied`` sequences, their
+  per-element files, encoded shards), the training CLI's ``main`` trains
+  2 steps on the shards with validation on a raw split, checkpointing,
+  and a second ``main`` resumes and takes a third; then the evaluation
+  CLI's ``main`` scores the EMA of the last checkpoint.
 - CPU tensors go to the plain twins and leave the launch counters alone.
 - On a CUDA card (tests marked ``cuda``; they skip without one) each
   kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, with
@@ -141,6 +147,64 @@ print('LOADED', loaded())
 '''
 
 
+MAIN = BLOCK + r'''
+import json, os, tempfile
+from pathlib import Path
+import numpy as np
+from dvs_of_training_framework_tpu_torch import test, train
+from dvs_of_training_framework_tpu_torch.data import synthetic
+from dvs_of_training_framework_tpu_torch.tools import (
+    make_synthetic_mvsec, prepare_batches, sequence2samples)
+from dvs_of_training_framework_tpu_torch.training.serializer import \
+    Serializer
+
+# cheaper textures, drawn by the simulator's own code
+scene, foreground = synthetic.make_scene, synthetic.make_foreground
+synthetic.make_scene = lambda rng, shape=synthetic.SCENE, num_blobs=260: \
+    scene(rng, shape, max(num_blobs // 40, 1))
+synthetic.make_foreground = lambda rng, shape=synthetic.SCENE, \
+    num_objects=28: foreground(rng, shape, 4)
+configs = Path(synthetic.__file__).parents[1] / 'config'
+
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    root = tmp / 'synth'
+    make_synthetic_mvsec.main([str(root), '--motion', 'varied', '--speed',
+                               '0.35', '--train-secs', '0.4', '--eval-secs',
+                               '0.25', '--val-secs', '0.25'])
+    os.environ['DVS_DATA_ROOT'] = str(root)
+    sequence2samples.main([str(configs / 'synth_train_datasets.json')])
+    split = root / 'training' / 'synth'
+    (split / 'outdoor_day2').symlink_to(split / 'outdoor_synth2')
+    (split / 'outdoor_day1').symlink_to(split / 'outdoor_synth3')
+    os.environ['DVS_DATA_PATH'] = str(split)
+    shards = tmp / 'shards'
+    prepare_batches.main(prepare_batches.parse_args([
+        '-o', str(shards), '-s', '8', '--samples-per-file', '4',
+        '--height', '32', '--width', '32', '-mbs', '2', '--num_workers',
+        '0']))
+    run = tmp / 'run'
+    for steps in (2, 3):
+        train.main(['-m', str(run), '-d', 'cpu', '-bs', '2', '-mbs', '2',
+                    '-ne', str(steps), '--height', '32', '--width', '32',
+                    '--num_workers', '0', '--event-capacity', '65536',
+                    '--preprocessed-dataset-path', str(shards),
+                    '--checkpointing_interval', '1',
+                    '--permanent_interval', '1', '-vp', '2',
+                    '--ema-decay', '0.999', '--allow-arguments-change'])
+    assert Serializer(run).list_known_steps() == [0, 1, 2, 3]
+    config = json.loads((configs / 'synth_testing.json').read_text())
+    config['synth']['outdoor_synth1'].update(step=[1, 2],
+                                             test_shape=[32, 32])
+    (tmp / 'testing.json').write_text(json.dumps(config))
+    test.main(['-m', str(run), '-o', str(tmp / 'eval'), '-s', '3', '-d',
+               'cpu', '--use-ema', '--test-config',
+               str(tmp / 'testing.json')])
+    assert (tmp / 'eval' / 'step_3_ema.pkl').is_file()
+print('LOADED', loaded())
+'''
+
+
 def test_port_runs_a_step_without_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, '-c', STEP], cwd=REPO, env=env,
@@ -152,6 +216,14 @@ def test_port_runs_a_step_without_jax():
 def test_loop_checkpoints_and_resumes_without_missing_packages():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, '-c', LOOP], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert 'LOADED []' in proc.stdout, proc.stdout
+
+
+def test_main_builds_trains_resumes_and_evaluates_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', MAIN], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert 'LOADED []' in proc.stdout, proc.stdout

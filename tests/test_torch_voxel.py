@@ -11,7 +11,8 @@ bit as a Python loop does, and the card's K1 is held to that order: on a
 card (tests marked ``cuda``) its grid repeats exactly and equals the
 twin's on the CPU, on tiles of every kind the kernel meets (sparse, wider
 than one tile, crowded past one sorting chunk, every event in one cell,
-no valid event).  The card's machine has no JAX, so the JAX imports are
+no valid event), and at depths past one channel group of 32 (33 and 64),
+where its backward gathers the same gradient as the twin's.  The card's machine has no JAX, so the JAX imports are
 optional there; run the card's tests with ``python -m pytest --noconftest
 -m cuda tests/test_torch_voxel.py``.
 """
@@ -280,3 +281,43 @@ def test_tile_kernel_equals_the_cpu_twin(cuda, case, dtype):
     got = voxel_cuda.voxelize(*(t.to(cuda) for t in inputs), P, H, W)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def test_wrapper_takes_any_channel_count():
+    """No depth is refused: the CUDA path's input checks pass at 64
+    channels, and a CPU tensor still goes to the twin."""
+    case = _torch(make_case(seed=2, C=64))
+    voxel_cuda._check_inputs(*case[:5])
+    assert torch.equal(voxel_cuda.voxelize(*case), voxelize_scatter(*case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('depth', [33, 64])
+def test_kernel_takes_any_channel_count(cuda, depth, dtype):
+    """Sparse cells, crowded ones and a hot pixel past one sorting chunk,
+    at a depth of more than one channel group: the forward equals the CPU
+    twin bit for bit, and so does the backward's gather."""
+    x, y, plane, weights, valid, P, H, W = crowded_case(
+        12, E=20000, P=4, H=20, W=300, C=depth)
+    x[:2500], y[:2500], plane[:2500] = 260, 7, 2      # one hot pixel
+    inputs = [torch.from_numpy(a) for a in (x, y, plane, weights, valid)]
+    inputs[3] = inputs[3].to(dtype)
+    g = torch.from_numpy(np.random.default_rng(13).normal(
+        size=(P, H, W, depth)).astype(np.float32))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # a serial add in event order
+    try:
+        w = inputs[3].clone().requires_grad_(True)
+        want = voxelize_scatter(*inputs[:3], w, inputs[4], P, H, W)
+        (want_dw,) = torch.autograd.grad(want, w, g)
+    finally:
+        torch.set_num_threads(threads)
+    on_card = [t.to(cuda) for t in inputs]
+    w = on_card[3].clone().requires_grad_(True)
+    got = voxel_cuda.voxelize(*on_card[:3], w, on_card[4], P, H, W)
+    (got_dw,) = torch.autograd.grad(got, w, g.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.detach().cpu().view(torch.int32),
+                       want.detach().view(torch.int32))
+    assert torch.equal(got_dw.cpu(), want_dw)
