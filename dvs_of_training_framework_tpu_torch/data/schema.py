@@ -2,11 +2,12 @@
 
 Counterpart of the raw, fixed-capacity path of
 ``dvs_of_training_framework_tpu/data/schema.py`` (``EventBuffer``,
-``Batch``, ``pad_events``, ``pad_batch``) and its capacity buckets
-(``default_buckets``, ``round_up_to_bucket``).  The dataclasses hold numpy
-arrays on the host and torch tensors on the device; ``.to(device)``
-moves a host batch over, and ``.pin_memory()`` first copies it into
-page-locked host memory, from which that copy can run asynchronously.
+``Batch``, ``pad_events``, ``layout_sample_slots``, ``pad_batch``) and
+its capacity buckets (``default_buckets``, ``round_up_to_bucket``).  The
+dataclasses hold numpy arrays on the host and torch tensors on the
+device; ``.to(device)`` moves a host batch over, and ``.pin_memory()``
+first copies it into page-locked host memory, from which that copy can
+run asynchronously.
 Padding rows carry ``sample_index = batch_size``, one past the last
 sample.
 """
@@ -147,7 +148,50 @@ def pad_events(events: dict, batch_size: int, capacity: int) -> EventBuffer:
         num_events=n)
 
 
-def pad_batch(collated: dict, capacity: int) -> Batch:
+def layout_sample_slots(collated: dict, max_seq_length: int) -> dict:
+    """Re-layout a variable-length batch into uniform per-sample slots.
+
+    With ``--dynamic-sample-length`` samples carry different element
+    counts, so the flat timestamp/image axis varies from batch to batch.
+    This gives every sample a block of ``max_seq_length + 1`` slots: its
+    real entries first, then padding marked by ``sample_idx = size`` (no
+    prediction matches it in the loss and ``segment_starts`` drops it),
+    with zero images and zero timestamps.  A batch whose samples all have
+    ``max_seq_length`` elements maps to itself.
+    """
+    size = int(collated['size'])
+    S = max_seq_length + 1
+    src_sample = np.asarray(collated['sample_idx'])
+    timestamps = np.asarray(collated['timestamps'], dtype=np.float32)
+    images = np.asarray(collated['images'], dtype=np.float32)
+    if images.ndim == 3:
+        images = images[:, None]
+
+    counts = np.bincount(src_sample, minlength=size)
+    if counts.max(initial=0) > S:
+        raise OverflowError(
+            f'sample with {counts.max()} timestamps exceeds slot size {S}')
+    # destination of every source entry: sample_block_start + local_index
+    local = np.arange(src_sample.size) - np.repeat(
+        np.concatenate([[0], np.cumsum(counts)[:-1]]), counts)
+    dst = src_sample * S + local
+
+    out_ts = np.zeros(size * S, np.float32)
+    out_sidx = np.full(size * S, size, np.int64)
+    out_images = np.zeros((size * S,) + images.shape[1:], np.float32)
+    out_ts[dst] = timestamps
+    out_sidx[dst] = src_sample
+    out_images[dst] = images
+
+    out = dict(collated)
+    out['timestamps'] = out_ts
+    out['sample_idx'] = out_sidx
+    out['images'] = out_images
+    return out
+
+
+def pad_batch(collated: dict, capacity: int,
+              sequence_length=None) -> Batch:
     """Convert a host-collated ragged batch dict into a padded host Batch.
 
     Args:
@@ -155,7 +199,12 @@ def pad_batch(collated: dict, capacity: int) -> Batch:
             ``sample_idx``, ``images`` (``[D, H, W]`` or ``[D, 1, H, W]``)
             and ``size``.
         capacity: fixed event capacity.
+        sequence_length: when set (dynamic sample length), re-layout the
+            timestamp/image axis into uniform per-sample slots of
+            ``sequence_length + 1`` entries (``layout_sample_slots``).
     """
+    if sequence_length is not None:
+        collated = layout_sample_slots(collated, sequence_length)
     size = int(collated['size'])
     images = np.asarray(collated['images'], dtype=np.float32)
     if images.ndim == 3:

@@ -1,6 +1,9 @@
-"""Model plugins of the port."""
-from .evflownet import Model, Predictor, QuantizationLayer
-from .optical_flow import BaseOpticalFlow, OpticalFlow
+"""Model plugins of the port and their loader."""
+from .evflownet import Model, OpticalFlow, Predictor, QuantizationLayer
+from .loader import (filter_kwargs, init_model, load_model_class,
+                     load_plugin, output_axes)
+from .optical_flow import BaseOpticalFlow
 
 __all__ = ['BaseOpticalFlow', 'Model', 'OpticalFlow', 'Predictor',
-           'QuantizationLayer']
+           'QuantizationLayer', 'filter_kwargs', 'init_model',
+           'load_model_class', 'load_plugin', 'output_axes']

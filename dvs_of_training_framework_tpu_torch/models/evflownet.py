@@ -1,8 +1,9 @@
 """EVFlowNet: a learnable event representation and a conv UNet with four
 flow heads.
 
-Counterpart of ``EVFlowNet/net.py`` (``DenseParams``,
-``QuantizationLayer``, ``ResBlock``, ``Predictor``, ``Model``), in NCHW.
+Counterpart of ``EVFlowNet/net.py`` (``mish``, ``get_activation``,
+``DenseParams``, ``QuantizationLayer``, ``ResBlock``, ``Predictor``,
+``Model``) and of its plugin's ``OpticalFlow``, in NCHW.
 The voxel grid's channel index is ``l * C + c`` for element ``l`` and
 temporal channel ``c``, the order of the JAX model's ``[B, H, W, L*C]``.
 Parameter names follow the flax tree (``predictor.enc0.weight``,
@@ -22,7 +23,8 @@ the JAX model casts them.  Each ``Conv`` casts its input, weight and bias;
 the kernel-MLP runs in float32 and its output is cast, as the TPU
 kernel's path does; the voxel grid is accumulated in float32 and cast;
 the upsampled flow is cast before the decoder's concatenation; the flow
-heads stay float32.
+heads stay float32.  The activation ('relu' or 'mish') runs in the
+compute type, where flax applies it.
 """
 import math
 from typing import Tuple
@@ -33,6 +35,7 @@ import torch.nn.functional as F
 
 from ..ops import kernel_mlp_cuda, voxel_cuda
 from ..ops.segment import segment_starts
+from .optical_flow import BaseOpticalFlow
 
 # standard deviation of a standard normal truncated to [-2, 2]
 _TRUNCATED_STD = 0.87962566103423978
@@ -43,6 +46,16 @@ def lecun_normal_(tensor, fan_in, generator):
     std = math.sqrt(1.0 / fan_in) / _TRUNCATED_STD
     return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std,
                                  generator=generator)
+
+
+def mish(x):
+    return x * torch.tanh(F.softplus(x))
+
+
+def get_activation(name):
+    if callable(name):
+        return name
+    return {'relu': F.relu, 'mish': mish}[name]
 
 
 def upsample2x_nearest(x):
@@ -183,25 +196,27 @@ class QuantizationLayer(nn.Module):
 
 class ResBlock(nn.Module):
 
-    def __init__(self, channels, generator, dtype=torch.float32):
+    def __init__(self, channels, generator, dtype=torch.float32, act=F.relu):
         super().__init__()
+        self.act = act
         self.Conv_0 = Conv(channels, channels, 3, generator, dtype=dtype)
         self.Conv_1 = Conv(channels, channels, 3, generator, dtype=dtype)
 
     def forward(self, x):
-        h = F.relu(self.Conv_0(x))
-        return F.relu(x + self.Conv_1(h))
+        h = self.act(self.Conv_0(x))
+        return self.act(x + self.Conv_1(h))
 
 
 class Predictor(nn.Module):
     """Conv encoder-decoder with flow heads at 1/8, 1/4, 1/2 and full
-    resolution (NCHW), ReLU activations, computing in ``dtype`` but for
-    the float32 flow heads."""
+    resolution (NCHW), computing in ``dtype`` but for the float32 flow
+    heads; ``activation`` is 'relu' or 'mish'."""
 
     def __init__(self, in_channels, base_channels=64, generator=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, activation='relu'):
         super().__init__()
         self.dtype = dtype
+        self.act = get_activation(activation)
         b = base_channels
         enc = (b, 2 * b, 4 * b, 8 * b)
         cin = in_channels
@@ -209,8 +224,8 @@ class Predictor(nn.Module):
             setattr(self, f'enc{i}', Conv(cin, ch, 3, generator, stride=2,
                                           dtype=dtype))
             cin = ch
-        self.res0 = ResBlock(8 * b, generator, dtype)
-        self.res1 = ResBlock(8 * b, generator, dtype)
+        self.res0 = ResBlock(8 * b, generator, dtype, self.act)
+        self.res1 = ResBlock(8 * b, generator, dtype, self.act)
         cin = 8 * b
         for i, ch in enumerate((4 * b, 2 * b, b, b // 2)):
             skip = enc[2 - i] if i < 3 else 0
@@ -223,7 +238,7 @@ class Predictor(nn.Module):
     def forward(self, x):
         skips = []
         for i in range(4):
-            x = F.relu(getattr(self, f'enc{i}')(x))
+            x = self.act(getattr(self, f'enc{i}')(x))
             skips.append(x)
         x = self.res1(self.res0(x))
 
@@ -237,11 +252,41 @@ class Predictor(nn.Module):
                 # cast, or the concatenation would promote to float32
                 parts.append((upsample2x_nearest(flow) * 2.0).to(self.dtype))
             x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
-            x = F.relu(getattr(self, f'dec{i}')(x))
+            x = self.act(getattr(self, f'dec{i}')(x))
             features.append(x)
             flow = getattr(self, f'flow{i}')(x.float())   # heads in fp32
             flows.append(flow)
         return flows, features
+
+
+def compute_dtype(dtype):
+    """The torch compute type of a model's ``dtype`` name."""
+    if dtype not in ('float32', 'bfloat16'):
+        raise ValueError(f"dtype must be 'float32' or 'bfloat16', got "
+                         f'{dtype!r}')
+    return getattr(torch, dtype)
+
+
+def batch_size_of(timestamps, max_sequence_length):
+    """Samples in a batch of ``max_sequence_length + 1`` timestamp slots
+    each."""
+    num_timestamps = max_sequence_length + 1
+    if timestamps.shape[0] % num_timestamps:
+        raise ValueError('timestamps must hold (sequence_length + 1) '
+                         'entries per sample')
+    return timestamps.shape[0] // num_timestamps
+
+
+def predicted_windows(timestamps, sample_idx, batch_size, prefix_length):
+    """``(flow_ts, flow_sample_idx)`` of the plugin contract: each
+    sample's prediction spans the timestamps at local indices
+    ``prefix_length`` and ``prefix_length + 1`` of its block."""
+    starts = segment_starts(sample_idx, batch_size).long() + prefix_length
+    flow_ts = torch.stack([timestamps[starts], timestamps[starts + 1]],
+                          dim=1)
+    flow_sample_idx = torch.arange(batch_size, dtype=torch.int32,
+                                   device=timestamps.device)
+    return flow_ts, flow_sample_idx
 
 
 class Model(nn.Module):
@@ -250,64 +295,54 @@ class Model(nn.Module):
     ``forward`` returns ``(flows, flow_ts, flow_sample_idx)``, plus the
     decoder features when ``intermediate``: flows are ``[B, 2, H/2^i,
     W/2^i]`` for i = 3..0, ``flow_ts`` ``[B, 2]`` the (start, stop)
-    timestamps of each prediction, ``flow_sample_idx`` ``arange(B)``.
+    timestamps of each prediction (the element after the
+    ``prefix_length`` context elements), ``flow_sample_idx``
+    ``arange(B)``.  The predictor sees the ``max_sequence_length``
+    elements' grids stacked on the channel axis.
     """
 
-    def __init__(self, max_sequence_length=1, event_representation_depth=9,
+    def __init__(self, prefix_length=0, suffix_length=0,
+                 max_sequence_length=1, dynamic_sample_length=False,
+                 event_representation_depth=9, activation='relu',
                  base_channels=64, plain_ops=False, generator=None,
                  device=None, dtype='float32'):
         super().__init__()
-        if dtype not in ('float32', 'bfloat16'):
-            raise ValueError(f"dtype must be 'float32' or 'bfloat16', got "
-                             f'{dtype!r}')
+        compute = compute_dtype(dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
+        self.prefix_length = prefix_length
+        self.suffix_length = suffix_length
         self.max_sequence_length = max_sequence_length
+        self.dynamic_sample_length = dynamic_sample_length
         depth = event_representation_depth
-        compute = getattr(torch, dtype)
         self.quantization_layer = QuantizationLayer(
             depth=depth, plain_ops=plain_ops, generator=generator,
             dtype=compute)
         self.predictor = Predictor(depth * max_sequence_length,
-                                   base_channels, generator, dtype=compute)
+                                   base_channels, generator, dtype=compute,
+                                   activation=activation)
         if device is not None:
             self.to(device)
 
-    def output_axes(self):
-        """Output axis of every parameter, None for biases: axis 0 of a
-        conv weight ``[out, in, kh, kw]``, axis 1 of a dense kernel
-        ``[in, out]`` (gradient centralisation averages over the rest)."""
-        axes = {}
-        for prefix, module in self.named_modules():
-            if isinstance(module, Conv):
-                axes[f'{prefix}.weight'] = 0
-            elif isinstance(module, DenseParams):
-                axes[f'{prefix}.kernel'] = 1
-            else:
-                continue
-            axes[f'{prefix}.bias'] = None
-        return axes
-
-    def _batch_size(self, timestamps):
-        num_timestamps = self.max_sequence_length + 1
-        if timestamps.shape[0] % num_timestamps:
-            raise ValueError('timestamps must hold (sequence_length + 1) '
-                             'entries per sample')
-        return timestamps.shape[0] // num_timestamps
-
     def forward(self, events, timestamps, sample_idx,
                 imsize: Tuple[int, int], intermediate: bool = False):
-        batch_size = self._batch_size(timestamps)
+        batch_size = batch_size_of(timestamps, self.max_sequence_length)
         grid = self.quantization_layer(events, timestamps, sample_idx,
                                        tuple(imsize),
                                        self.max_sequence_length, batch_size)
         flows, features = self.predictor(grid)
-
-        starts = segment_starts(sample_idx, batch_size).long()
-        flow_ts = torch.stack([timestamps[starts], timestamps[starts + 1]],
-                              dim=1)
-        flow_sample_idx = torch.arange(batch_size, dtype=torch.int32,
-                                       device=timestamps.device)
+        flow_ts, flow_sample_idx = predicted_windows(
+            timestamps, sample_idx, batch_size, self.prefix_length)
         if intermediate:
             return tuple(flows), flow_ts, flow_sample_idx, tuple(features)
         return tuple(flows), flow_ts, flow_sample_idx
+
+
+class OpticalFlow(BaseOpticalFlow):
+    """Inference wrapper for EVFlowNet (``EVFlowNet/__init__.py``)."""
+
+    def __init__(self, imsize, model=None, activation='relu',
+                 event_representation_depth=9, **kwargs):
+        super().__init__(
+            imsize, Model, model=model, activation=activation,
+            event_representation_depth=event_representation_depth, **kwargs)

@@ -2,13 +2,15 @@
 
 Counterpart of ``BaseOpticalFlow`` of
 ``dvs_of_training_framework_tpu/models/optical_flow.py`` (reference
-DummyNet/of.py:18-125) and of the EVFlowNet plugin's ``OpticalFlow``
-(``EVFlowNet/__init__.py``).  It collates raw event windows into one
-padded batch, with the same capacity buckets (``default_buckets`` from
-4096 up to ``event_capacity``) and the same time normalisation (each
-call's timestamps relative to its earliest), runs the network under
-``torch.inference_mode()`` on the model's device, so that K1 and K2 run
-their forward kernels on a card, and returns NHWC numpy flow.  The JAX
+DummyNet/of.py:18-125); each plugin module of the port
+(``models/{evflownet,recurrent_flownet,dummy_flownet}.py``) subclasses it
+as its ``OpticalFlow``, as the JAX plugins do.  It collates raw event
+windows into one padded batch, with the same capacity buckets
+(``default_buckets`` from 4096 up to ``event_capacity``) and the same
+time normalisation (each call's timestamps relative to its earliest),
+runs the network under ``torch.inference_mode()`` on the model's device,
+so that K1 and K2 run their forward kernels on a card, and returns NHWC
+numpy flow.  The JAX
 wrapper's 8-byte wire records (``pack_events_wire``) are a TPU upload
 codec and are left out: the flow is the same without them.
 
@@ -17,29 +19,13 @@ or of the JAX package (``training.serializer.read_params_file``), or, when
 it names no file, from the model's own seeded initialisation.  The device
 defaults to ``cuda``; a CPU wrapper runs the kernels' plain twins.
 """
-import inspect
-import logging
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..data.schema import default_buckets, pad_events, round_up_to_bucket
-from .evflownet import Model
-
-
-def filter_kwargs(func, kwargs):
-    """Restrict kwargs to the parameters ``func`` accepts (all of them if
-    it takes ``**kwargs``); the port's copy of the JAX package's
-    ``models.loader.filter_kwargs`` for callables."""
-    parameters = inspect.signature(func).parameters
-    if any(p.kind == inspect.Parameter.VAR_KEYWORD
-           for p in parameters.values()):
-        return kwargs
-    dropped = [k for k in kwargs if k not in parameters]
-    if dropped:
-        logging.warning(f'{dropped} are filtered out from model parameters!')
-    return {k: v for k, v in kwargs.items() if k in parameters}
+from .loader import filter_kwargs
 
 
 class BaseOpticalFlow:
@@ -47,10 +33,10 @@ class BaseOpticalFlow:
 
     Args:
         imsize: (height, width) of the produced flow.
-        model_cls: the port's model class.
+        model_cls: the plugin's model class.
         model: path to a parameters/checkpoint file (or None for the
             seeded fresh initialisation).
-        activation: 'relu' (the port has no other yet).
+        activation: activation name forwarded to the model.
         event_capacity: maximum events per call (bucketed below this).
         device: where the network runs.
         model_kwargs: extra model construction kwargs.
@@ -64,15 +50,13 @@ class BaseOpticalFlow:
                  event_capacity=2 ** 19,
                  device='cuda',
                  **model_kwargs):
-        if activation != 'relu':
-            raise ValueError(f'activation {activation!r} is not ported yet '
-                             '(ROADMAP queue 1 item 10)')
         self.imsize = tuple(int(v) for v in imsize)
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError(f'device {device}: no CUDA device is '
                                'available')
-        kwargs = filter_kwargs(model_cls, dict(model_kwargs))
+        kwargs = filter_kwargs(model_cls, dict(model_kwargs,
+                                               activation=activation))
         self._net = model_cls(generator=torch.Generator().manual_seed(0),
                               device=self.device, **kwargs)
         self._net.eval()
@@ -135,12 +119,3 @@ class BaseOpticalFlow:
             return tuple(map(back, flow))
         return back(flow[-1])
 
-
-class OpticalFlow(BaseOpticalFlow):
-    """Inference wrapper for the EVFlowNet model."""
-
-    def __init__(self, imsize, model=None, activation='relu',
-                 event_representation_depth=9, **kwargs):
-        super().__init__(
-            imsize, Model, model=model, activation=activation,
-            event_representation_depth=event_representation_depth, **kwargs)

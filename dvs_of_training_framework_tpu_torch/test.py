@@ -20,9 +20,13 @@ The root CLI's ``DevicePool`` spreads checkpoints over a host's TPU
 cores; this one evaluates them in turn on one device, and accepts
 ``--tests_per_device`` only to ignore it.  The device defaults to
 ``cuda``; ``-d cuda`` without a card raises.  Convolutions and matmuls
-run in full fp32 (TF32 off), as the JAX package's 'highest'.  Plugins
-other than EVFlowNet and the flags of features not ported yet raise an
-error naming their ROADMAP item.
+run in full fp32 (TF32 off), as the JAX package's 'highest'.  The
+plugin's ``OpticalFlow`` comes through the port's loader
+(``--flownet_path``, ``models/loader.py``).  Evaluation windows hold one
+element each, so ``--max-sequence-length`` above 1 and context elements
+(``--prefix-length``, ``--suffix-length``) are refused (the root CLI
+would fail inside the model): a recurrent plugin's wrapper takes one
+element, a single ConvGRU step.
 """
 import pickle
 import re
@@ -37,7 +41,7 @@ import torch
 
 from .data import store
 from .evaluation import evaluate, ravel_config, read_config
-from .models.optical_flow import OpticalFlow, filter_kwargs
+from .models.loader import filter_kwargs, load_plugin
 from .train import resolve_device
 from .training.serializer import Serializer
 from .utils.common import data_root
@@ -47,27 +51,17 @@ from .utils.tb import SummaryWriter
 
 REPO = Path(__file__).resolve().parents[1]
 
-# (flag, whether the parsed arguments use it, ROADMAP queue 1 item)
-UNPORTED = (
-    ('--flownet_path other than EVFlowNet',
-     lambda a: Path(a.flownet_path).name != 'EVFlowNet', 10),
-    ('--mish', lambda a: a.mish, 10),
-    ('--max-sequence-length > 1', lambda a: a.max_sequence_length > 1, 11),
-    ('--dynamic-sample-length', lambda a: a.dynamic_sample_length, 11),
-    ('--prefix-length / --suffix-length',
-     lambda a: a.prefix_length > 0 or a.suffix_length > 0, 11),
-)
-
 
 def parse_args(argv=None):
     parser = ArgumentParser()
     add_test_arguments(parser)
     parser.set_defaults(device='cuda')
     args = validate_test_args(parser.parse_args(argv))
-    for flag, used, item in UNPORTED:
-        if used(args):
-            raise ValueError(f'{flag} is not ported yet (ROADMAP queue 1 '
-                             f'item {item})')
+    if (args.max_sequence_length, args.prefix_length,
+            args.suffix_length) != (1, 0, 0):
+        raise ValueError('--max-sequence-length, --prefix-length, '
+                         '--suffix-length: evaluation windows hold one '
+                         'element each')
     if args.tests_per_device != parser.get_default('tests_per_device'):
         print(f'--tests_per_device {args.tests_per_device}: checkpoints are '
               'evaluated in turn on one device, ignored')
@@ -143,12 +137,15 @@ def build_crops(imshape, test_shape, crop_type):
 
 
 def init_model(args, test_shape):
-    """The EVFlowNet OpticalFlow wrapper on ``args.device``."""
-    kwargs = filter_kwargs(OpticalFlow, options2model_kwargs(args))
+    """The plugin's OpticalFlow wrapper on ``args.device`` (the root
+    CLI's ``init_model``, through the port's loader)."""
+    module = load_plugin(args.flownet_path)
+    kwargs = filter_kwargs(module.OpticalFlow, options2model_kwargs(args))
     if args.model is not None:
         kwargs['model'] = args.model
-    return OpticalFlow(test_shape, device=getattr(args, 'device', 'cuda'),
-                       **kwargs)
+    return module.OpticalFlow(test_shape,
+                              device=getattr(args, 'device', 'cuda'),
+                              **kwargs)
 
 
 def perform_single_test(args, cfg, dataset):

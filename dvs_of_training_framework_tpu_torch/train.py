@@ -2,8 +2,10 @@
 """Training CLI of the port, for one process on one device.
 
 Counterpart of the JAX package's composition root ``train_flownet.py``:
-it parses the shared option groups, builds the EVFlowNet model, the
-optimizer, the loss, the serializer and the hooks, resumes from the
+it parses the shared option groups, builds the plugin's model
+(``--flownet_path``: EVFlowNet, RecurrentFlowNet, DummyFlowNet or a torch
+plugin directory, ``models/loader.py``), the optimizer, the loss, the
+serializer and the hooks, resumes from the
 newest checkpoint (parameters, optimizer state, step, samples passed and
 the data stream's position) or writes step 0, validates, trains,
 validates again and writes the final checkpoint.
@@ -20,7 +22,6 @@ features the port does not have yet raise an error naming their ROADMAP
 item; the TPU-only flags are accepted and ignored with one line each.
 """
 from argparse import ArgumentParser
-from pathlib import Path
 import sys
 
 import torch
@@ -28,12 +29,12 @@ import torch
 from .data.dataloader import (choose_data_path, get_dataloader,
                               get_trainset_params, get_valset_params)
 from .losses import LOSS_PRECISIONS, MultiScaleLoss
-from .models import Model
+from .models import init_model
 from .training import (construct_optimizer, create_train_state,
                        current_learning_rates, make_eval_step,
                        make_train_step)
 from .training.hooks import SerializationHook, ValidationHook
-from .training.serializer import Serializer, read_params_file
+from .training.serializer import Serializer
 from .training.train import make_hook_periodic, shapes2tags, train
 from .utils.common import (check_execution_info, collect_execution_info,
                            write_execution_info)
@@ -50,15 +51,8 @@ UNPORTED = (
     ('--num-processes', lambda a: a.num_processes is not None, 14),
     ('--process-id', lambda a: a.process_id is not None, 14),
     ('--ev_images', lambda a: a.ev_images, 12),
-    ('--max-sequence-length > 1', lambda a: a.max_sequence_length > 1, 11),
-    ('--dynamic-sample-length', lambda a: a.dynamic_sample_length, 11),
-    ('--prefix-length / --suffix-length',
-     lambda a: a.prefix_length > 0 or a.suffix_length > 0, 11),
     ('--timers', lambda a: a.timers, 13),
     ('--profiling', lambda a: a.profiling != 'None', 13),
-    ('--flownet_path other than EVFlowNet',
-     lambda a: Path(a.flownet_path).name != 'EVFlowNet', 10),
-    ('--mish', lambda a: a.mish, 10),
 )
 # TPU and tunnel workarounds the port leaves out (ROADMAP "Not to port")
 TPU_ONLY = ('wire_timestamps', 'wire_events', 'wire_data',
@@ -92,21 +86,18 @@ def resolve_device(name) -> torch.device:
 
 
 def flow_shapes(shape):
-    """EVFlowNet's four flow scales for ``(H, W)`` images, coarse first."""
+    """The plugin contract's four flow scales for ``(H, W)`` images,
+    coarse first."""
     h, w = shape
     return [(h // 2 ** s, w // 2 ** s) for s in (3, 2, 1, 0)]
 
 
-def build_model(args, device) -> Model:
-    """EVFlowNet seeded from ``--init-seed``, in ``--precision``, from the
-    ``-sp`` weights (of the port or of the JAX package) when given."""
-    model = Model(event_representation_depth=args.event_representation_depth,
-                  dtype=args.precision,
-                  generator=torch.Generator().manual_seed(args.init_seed),
-                  device=device)
-    if args.sp is not None:
-        model.load_state_dict(read_params_file(args.sp), strict=True)
-    return model
+def pad_sequence_length(args):
+    """Per-sample slot count for dynamic sample lengths, None for static
+    ones (``train_flownet.py``'s ``pad_sequence_length``):
+    ``max_sequence_length`` counts every element of a sample, its prefix
+    and suffix context included."""
+    return args.max_sequence_length if args.dynamic_sample_length else None
 
 
 def run(args, train_loader_factory, val_loader_factory, logger,
@@ -139,13 +130,14 @@ def run(args, train_loader_factory, val_loader_factory, logger,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    model = build_model(args, device)
+    model = init_model(args, device)
     serializer = Serializer(args.model, args.num_checkpoints,
                             args.permanent_interval)
     optimizer = construct_optimizer(args, model)
     evaluator = MultiScaleLoss(flow_shapes(args.shape),
                                bf16x2=LOSS_PRECISIONS[args.loss_precision])
     tags = shapes2tags(evaluator.shapes)
+    sequence_length = pad_sequence_length(args)
     train_step = make_train_step(model, evaluator, optimizer,
                                  args.loss_weights, args.accum_step)
 
@@ -156,7 +148,8 @@ def run(args, train_loader_factory, val_loader_factory, logger,
         hooks['validation'] = ValidationHook(
             make_eval_step(model, evaluator, args.loss_weights),
             val_loader_factory, logger, tags, device,
-            event_capacity=args.event_capacity)
+            event_capacity=args.event_capacity,
+            sequence_length=sequence_length)
         periods['validation'] = args.vp
 
     if not args.do_not_continue and serializer.has_checkpoints():
@@ -179,14 +172,16 @@ def run(args, train_loader_factory, val_loader_factory, logger,
         logger=logger,
         tags=tags,
         device=device,
-        lr_fn=lambda step: current_learning_rates(args, step),
+        lr_fn=lambda step: current_learning_rates(args, step,
+                                                  optimizer.groups),
         accumulation_steps=args.accum_step,
         event_capacity=args.event_capacity,
         timers=timers,
         hooks={k: make_hook_periodic(hooks[k], periods[k]) for k in periods},
         init_step=global_step,
         init_samples_passed=samples_passed,
-        max_events_per_batch=args.max_events_per_batch)
+        max_events_per_batch=args.max_events_per_batch,
+        sequence_length=sequence_length)
 
     hooks['serialization'](args.training_steps, samples_passed)
     if not args.skip_validation:

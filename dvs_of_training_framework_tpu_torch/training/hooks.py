@@ -35,7 +35,7 @@ class ValidationHook:
     """Runs a validation pass over the validation loader."""
 
     def __init__(self, eval_step, loader_factory, logger, tags, device,
-                 event_capacity=2 ** 18):
+                 event_capacity=2 ** 18, sequence_length=None):
         """
         Args:
             eval_step: ``batch -> (loss, terms)`` (``state.make_eval_step``).
@@ -44,6 +44,8 @@ class ValidationHook:
             logger: SummaryWriter.
             tags: per-scale tags.
             device: the torch device of the model.
+            sequence_length: per-sample slot count for dynamic sample
+                lengths, None for static lengths.
         """
         self.eval_step = eval_step
         self.loader_factory = loader_factory
@@ -51,7 +53,9 @@ class ValidationHook:
         self.tags = copy.deepcopy(list(tags))
         self.device = device
         self.event_capacity = event_capacity
+        self.sequence_length = sequence_length
 
     def __call__(self, steps: int, samples: int):
         validate(self.eval_step, self.loader_factory(), samples, self.logger,
-                 self.tags, self.device, event_capacity=self.event_capacity)
+                 self.tags, self.device, event_capacity=self.event_capacity,
+                 sequence_length=self.sequence_length)

@@ -1,4 +1,4 @@
-"""Optimizers: ADAM, RADAM and RANGER over two parameter groups.
+"""Optimizers: ADAM, RADAM and RANGER over one or two parameter groups.
 
 Counterpart of ``dvs_of_training_framework_tpu/training/optimizers.py``
 (``make_lr_schedule``, ``lookahead``, ``gradient_centralization``,
@@ -14,13 +14,15 @@ optax's semantics rather than with ``torch.optim``:
 - decoupled weight decay is added to the direction before the
   ``-lr * schedule`` scale, so the decay is scaled by the learning rate;
 - RANGER centralises each gradient over every axis but the parameter's
-  output axis, which the model states (``Model.output_axes``), and wraps
+  output axis (``models.loader.output_axes``), and wraps
   the rest in Lookahead (sync every 6 steps, slow step 0.5, slow weights
   starting as a copy);
 - ``quantization_layer`` parameters form the representation group, whose
   schedule is 0 while ``step <= training_steps * rs``; its moments still
-  update while it is frozen;
-- ``grad_clip_norm > 0`` clips the gradients of both groups together by
+  update while it is frozen.  A model without a ``quantization_layer``
+  (DummyFlowNet) trains as one group, ``predictor``, on the predictor's
+  schedule;
+- ``grad_clip_norm > 0`` clips the gradients of all groups together by
   their global norm before anything else, optax
   ``chain(clip_by_global_norm, multi_transform(...))``:
   ``where(norm < max, g, g / norm * max)``;
@@ -38,6 +40,8 @@ computed on the host in float32, so a step needs no device sync.
 """
 import numpy as np
 import torch
+
+from ..models.loader import output_axes
 
 B1, B2, EPS, THRESHOLD = 0.9, 0.999, 1e-8, 5.0
 SYNC_PERIOD, SLOW_STEP = 6, 0.5
@@ -255,7 +259,8 @@ class Optimizer:
 
 
 def construct_optimizer(args, model) -> Optimizer:
-    """ADAM, RADAM or RANGER over the model's two groups.
+    """ADAM, RADAM or RANGER over the model's two groups, or over one
+    (``predictor``) when it has no ``quantization_layer``.
 
     ``args`` carries ``optimizer``, ``lr``, ``wdw`` (weight decay),
     ``half_life``, ``num_warmup_steps``, ``training_steps`` and ``rs``;
@@ -270,7 +275,7 @@ def construct_optimizer(args, model) -> Optimizer:
         raise ValueError(f'unsupported optimizer {args.optimizer!r} '
                          f'({", ".join(KINDS)} are ported)')
     schedules = _schedules(args)
-    axes = model.output_axes()
+    axes = output_axes(model)
     named = dict(model.named_parameters())
     names = {'representation': [], 'predictor': []}
     for pname in named:
@@ -280,7 +285,7 @@ def construct_optimizer(args, model) -> Optimizer:
     groups = {key: ParamGroup(names[key], [named[n] for n in names[key]],
                               [axes[n] for n in names[key]],
                               schedules[key], args.wdw, kind=name)
-              for key in names}
+              for key in names if names[key]}
     return Optimizer(groups,
                      float(getattr(args, 'grad_clip_norm', 0.0) or 0.0),
                      float(getattr(args, 'ema_decay', 0.0) or 0.0))
@@ -299,8 +304,10 @@ def _schedules(args):
     }
 
 
-def current_learning_rates(args, step: int):
-    """Both groups' learning rates at ``step`` for logging
-    (``General/learning rate/{i}``): the representation group first."""
+def current_learning_rates(args, step: int,
+                           groups=('representation', 'predictor')):
+    """The learning rates of ``groups`` (an optimizer's ``groups``) at
+    ``step`` for logging (``General/learning rate/{i}``), in that order:
+    the representation group first where there is one."""
     schedules = _schedules(args)
-    return [schedules['representation'](step), schedules['predictor'](step)]
+    return [schedules[key](step) for key in groups]

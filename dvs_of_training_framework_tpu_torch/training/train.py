@@ -95,7 +95,8 @@ def train(train_step,
           init_samples_passed=0,
           max_events_per_batch: int = 350000,
           on_state_update=None,
-          metric_flush_steps: int = 16):
+          metric_flush_steps: int = 16,
+          sequence_length=None):
     """Run the training loop.
 
     Args:
@@ -115,6 +116,8 @@ def train(train_step,
         hooks: dict of periodic hooks called with (step, samples_passed).
         on_state_update: optional callback receiving the latest state.
         metric_flush_steps: optimizer steps between metric fetches.
+        sequence_length: per-sample slot count for dynamic sample
+            lengths (``pad_batch``), None for static lengths.
 
     Returns:
         (state, samples_passed)
@@ -133,7 +136,8 @@ def train(train_step,
         num_events = batch_num_events(host_batch)
         if num_events > capacity:
             raise OverflowError(f'{num_events} events > capacity {capacity}')
-        return pad_batch(host_batch, capacity)
+        return pad_batch(host_batch, capacity,
+                         sequence_length=sequence_length)
 
     def flush_metrics():
         nonlocal pending_boundaries
@@ -246,10 +250,10 @@ def _emit_validation(logger, tags, samples_passed, n, loss_sum, smooth_sum,
 
 
 def validate(eval_step, loader, samples_passed, logger, tags, device,
-             event_capacity=2 ** 18):
+             event_capacity=2 ** 18, sequence_length=None):
     """Validation pass (reference utils/training.py:244-271): the mean
     loss terms over the batches that fit ``event_capacity``, fetched from
-    the device once at the end."""
+    the device once at the end; ``sequence_length`` as in ``train``."""
     n = 0
     photo_sum, smooth_sum, out_reg_sum = [], [], []
     loss_sum = 0.0
@@ -258,7 +262,8 @@ def validate(eval_step, loader, samples_passed, logger, tags, device,
         if batch_num_events(batch) > event_capacity:
             continue
         pending.append(eval_step(
-            pad_batch(batch, event_capacity).to(device)))
+            pad_batch(batch, event_capacity,
+                      sequence_length=sequence_length).to(device)))
         n += 1
     for loss, (smoothness, photometric, out_reg) in _fetch(pending):
         photo_sum = add_loss(photo_sum, photometric)

@@ -96,8 +96,10 @@ def _prune(tree):
 
 def optax_state_to_torch(opt_state, model: torch.nn.Module) -> dict:
     """The port's ``Optimizer.state_dict()`` for a JAX package optimizer
-    state of ADAM, RADAM or RANGER over the two groups, with or without
-    the clip and EMA riders, on the devices of ``model``'s parameters.
+    state of ADAM, RADAM or RANGER over the two groups, or over one group
+    (a model without a ``quantization_layer``: the port's ``predictor``
+    group), with or without the clip and EMA riders, on the devices of
+    ``model``'s parameters.
 
     Each group's ``count``, ``mu`` and ``nu`` come from its moments state
     (optax ``scale_by_radam`` or ``scale_by_amsgrad``, whose ``nu_max``
@@ -112,8 +114,10 @@ def optax_state_to_torch(opt_state, model: torch.nn.Module) -> dict:
                 flax_to_torch(_prune(tree)).items()}
 
     groups = {}
-    (multi,) = _find(opt_state, 'inner_states')
-    for key, group_state in multi['inner_states'].items():
+    multi = _find(opt_state, 'inner_states')
+    group_states = (multi[0]['inner_states'] if multi
+                    else {'predictor': opt_state})
+    for key, group_state in group_states.items():
         (moments,) = _find(group_state, 'mu')
         state = {'count': int(np.asarray(moments['count'])),
                  'mu': tensors(moments['mu']), 'nu': tensors(moments['nu'])}

@@ -5,8 +5,9 @@ Mirrors the JAX package's tests/training/test_cli.py (end to end, resume,
 the guard against changed arguments) with the same fixture layout, on the
 CPU, with the port's EVFlowNet at 64x64, batch 2, two steps; and adds
 ``--ema-decay`` with ``finalize``, one refused flag for each ROADMAP item
-not ported yet, the refusal of ``-d cuda`` without a card, and one
-ignored TPU-only flag that logs its line.
+not ported yet, the flags of the ported items 10 and 11 accepted, the
+refusal of ``-d cuda`` without a card, and one ignored TPU-only flag
+that logs its line.
 """
 import os
 from pathlib import Path
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from dvs_of_training_framework_tpu_torch import train as cli
+from dvs_of_training_framework_tpu_torch.models import init_model
 from dvs_of_training_framework_tpu_torch.training.serializer import (
     Serializer, read_params_file)
 from tests.helpers import data_path
@@ -116,20 +118,36 @@ def test_train_cli_ema_finalize(tmp_path, mvsec_layout):
     # after 2 steps at decay .9 the EMA differs from the live weights
     assert any(not torch.equal(ema[k], live[k]) for k in ema)
     args = cli.parse_args(['-m', str(model_dir)] + BASE)
-    model = cli.build_model(args, torch.device('cpu'))
+    model = init_model(args, torch.device('cpu'))
     model.load_state_dict(ema, strict=True)
 
 
 @pytest.mark.parametrize('flags, item', [
-    (['--flownet_path', str(REPO / 'DummyFlowNet')], 10),
-    (['--max-sequence-length', '2'], 11),
     (['--ev_images'], 12),
     (['--timers'], 13),
+    (['--profiling', 'JAX'], 13),
     (['--mesh', 'data:2'], 14),
+    (['--num-processes', '2'], 14),
 ])
 def test_train_cli_refuses_unported_flags(tmp_path, flags, item):
     with pytest.raises(ValueError, match=f'ROADMAP queue 1 item {item}'):
         cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
+
+
+@pytest.mark.parametrize('flags', [
+    ['--flownet_path', str(REPO / 'DummyFlowNet')],
+    ['--flownet_path', 'RecurrentFlowNet', '--max-sequence-length', '2'],
+    ['--max-sequence-length', '3', '--prefix-length', '1',
+     '--suffix-length', '1'],
+    ['--max-sequence-length', '2', '--dynamic-sample-length'],
+    ['--mish'],
+])
+def test_train_cli_accepts_ported_flags(tmp_path, flags):
+    args = cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
+    model = init_model(args, torch.device('cpu'))
+    assert model.max_sequence_length == args.max_sequence_length
+    assert cli.pad_sequence_length(args) == (
+        args.max_sequence_length if args.dynamic_sample_length else None)
 
 
 def test_train_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):

@@ -26,6 +26,7 @@ from dvs_of_training_framework_tpu.models import load_model_class
 from dvs_of_training_framework_tpu.ops import voxel_pallas
 from dvs_of_training_framework_tpu_torch.data.schema import pad_events
 from dvs_of_training_framework_tpu_torch.models import evflownet
+from dvs_of_training_framework_tpu_torch.models.loader import output_axes
 from dvs_of_training_framework_tpu_torch.utils.convert import (
     flax_to_torch, load_flax_params, torch_to_flax)
 
@@ -184,7 +185,7 @@ def test_init_matches_flax_shapes_and_scale():
     want = flax_to_torch(params)
     got = port.state_dict()
     assert set(got) == set(want)
-    assert set(port.output_axes()) == set(want)
+    assert set(output_axes(port)) == set(want)
     for name, tensor in got.items():
         assert tensor.shape == want[name].shape, name
         if name.endswith('.bias'):

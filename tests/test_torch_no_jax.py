@@ -3,10 +3,13 @@
 Both subprocess checks below run in a fresh interpreter where jax, flax,
 optax, h5py, yaml, psutil, tqdm and msgpack cannot be imported (the card's
 machine lacks them), and fail if any module of the JAX package
-(``dvs_of_training_framework_tpu``, the port aside) was loaded:
+(``dvs_of_training_framework_tpu``, the port aside) or of the repo's root
+plugin packages (``EVFlowNet``, ``RecurrentFlowNet``, ``DummyFlowNet``,
+which import flax) was loaded:
 
 - importing every module of the port and running one CPU training step of
-  the golden configuration and one of the bf16 recipe;
+  the golden configuration and one of the bf16 recipe, then one of
+  RecurrentFlowNet on 2-element samples;
 - the training CLI's ``run`` training 2 steps on the CPU from an in-memory
   loader, checkpointing, and a second ``run`` resuming and taking a third;
 - the whole data path and both CLIs' ``main``: the port's tools build a
@@ -14,7 +17,9 @@ machine lacks them), and fail if any module of the JAX package
   per-element files, encoded shards), the training CLI's ``main`` trains
   2 steps on the shards with validation on a raw split, checkpointing,
   and a second ``main`` resumes and takes a third; then the evaluation
-  CLI's ``main`` scores the EMA of the last checkpoint.
+  CLI's ``main`` scores the EMA of the last checkpoint; then
+  ``main`` trains RecurrentFlowNet (``--flownet_path RecurrentFlowNet``)
+  a step on the raw split's 2-element samples.
 - CPU tensors go to the plain twins and leave the launch counters alone.
 - On a CUDA card (tests marked ``cuda``; they skip without one) each
   kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, with
@@ -52,7 +57,8 @@ for name in BLOCKED:
 
 
 def loaded():
-    watched = BLOCKED + ('dvs_of_training_framework_tpu',)
+    watched = BLOCKED + ('dvs_of_training_framework_tpu', 'EVFlowNet',
+                         'RecurrentFlowNet', 'DummyFlowNet')
     return sorted(m for m in sys.modules if sys.modules[m] is not None
                   and m.split('.')[0] in watched)
 '''
@@ -95,6 +101,23 @@ for dtype, bf16x2 in (('float32', False), ('bfloat16', True)):
     state, (loss, _) = step(create_train_state(),
                             pad_batch(collated, 64).to('cpu'))
     assert state.step == 1 and torch.isfinite(loss)
+
+# RecurrentFlowNet on 2-element samples
+from dvs_of_training_framework_tpu_torch.models import recurrent_flownet
+events = dict(collated['events'], element_index=(
+    collated['events']['timestamp'] > 0.02).astype(int))
+sequences = dict(collated, events=events,
+                 timestamps=np.tile([0.0, 0.02, 0.04], B),
+                 sample_idx=np.repeat(np.arange(B), 3),
+                 images=rng.uniform(0, 255, (3 * B, H, W)))
+model = recurrent_flownet.Model(max_sequence_length=2,
+                                event_representation_depth=3,
+                                base_channels=4, hidden_channels=4)
+step = make_train_step(model, MultiScaleLoss(shapes),
+                       construct_optimizer(args, model), [0.5, 1, 1], 1)
+state, (loss, _) = step(create_train_state(),
+                        pad_batch(sequences, 64).to('cpu'))
+assert state.step == 1 and torch.isfinite(loss)
 print('LOADED', loaded())
 '''
 
@@ -201,6 +224,13 @@ with tempfile.TemporaryDirectory() as tmp:
                'cpu', '--use-ema', '--test-config',
                str(tmp / 'testing.json')])
     assert (tmp / 'eval' / 'step_3_ema.pkl').is_file()
+    train.main(['-m', str(tmp / 'recurrent'), '-d', 'cpu', '-bs', '2',
+                '-mbs', '2', '-ne', '1', '--height', '32', '--width', '32',
+                '--num_workers', '0', '--event-capacity', '65536',
+                '--flownet_path', 'RecurrentFlowNet',
+                '--min-sequence-length', '2', '--max-sequence-length', '2',
+                '-vp', '1'])
+    assert Serializer(tmp / 'recurrent').list_known_steps() == [0, 1]
 print('LOADED', loaded())
 '''
 
