@@ -3,7 +3,8 @@
 
 Drives the port's two EVFlowNet training configurations at the full width
 of the repo's benchmark, then RecurrentFlowNet at its full width, multi-
-element samples and DummyFlowNet: base 64, depth 9, 256x256, batch 8, event
+element samples, DummyFlowNet, the representation bake and dense
+training (``--ev_images``): base 64, depth 9, 256x256, batch 8, event
 capacity 2^17, RANGER at lr 1e-3, loss weights (0.5, 1, 1), on batches
 from the port's copy of the benchmark's batch maker
 (``dvs_of_training_framework_tpu_torch/data/synthetic.py``).  "Golden" is
@@ -110,7 +111,29 @@ Phases:
 19. EVFlowNet on 1-2 element samples (``--dynamic-sample-length``, padding
     slots in every batch): one recipe step through the kernels against
     the twins, then 4 steps of ``run()``; and DummyFlowNet for 4 steps of
-    ``run()``, with one optimizer group.
+    ``run()``, with one optimizer group;
+20. the bake: ``tools.quantize_preprocessed`` (-mbs 8, phase 11's event
+    capacity 2^17, bf16) bakes phase 14's raw shards with phase 14's
+    step-12 checkpoint on the card, in one go and again cut at half and
+    resumed, which must give the same files byte for byte; K1 and K2
+    forward launch once a batch and nothing else; the first baked batch
+    equals, bit for bit, the CPU twins' ``quantize`` of the same padded
+    batch with the card's K2 output standing in for the K2 twin's, which
+    it must match within phase 3's bound; prints samples/s, the split
+    between reading, the device and writing, the skips and the set's size;
+21. dense training: ``train.main()`` with ``--ev_images`` on the baked
+    shards, the recipe flags, ``-sp`` that checkpoint and
+    ``--representation-start 1.0``, 12 steps with checkpoints and raw
+    validation every 4: the train steps launch the fused warp 4 times each
+    way and no K1 or K2, which launch in the validation passes only; two
+    resumes from checkpoint 8 held to phase 12's rule; its step and the
+    reader's time a batch beside phase 14's; then one dense step through
+    the kernels against the twins (the recipe at phase 6's tolerances, and
+    fp32 through the fused warp at phase 5's), and 3 + 10 dense recipe
+    steps timed and traced as phases 9-10;
+22. ``--ev_images`` over the raw set: 4 steps of ``run()`` with EVFlowNet's
+    ``compute_event_image`` on the host (its ms a sample), then
+    DummyFlowNet's.
 
 Every phase from 17 on prints its own seconds.  Prints the kernels as
 one JSON line (each with its time, the twin's, one PyTorch call's where
@@ -122,6 +145,7 @@ that line is not printed.
 
 Usage (from the root of a checkout):  python3 chip_smoke.py
 """
+import filecmp
 import json
 import math
 import os
@@ -166,6 +190,8 @@ SYNTH_CUTS = (('--train-secs', 2.0, 60.0), ('--eval-secs', 1.0, 12.0),
               ('--val-secs', 1.0, 12.0))
 SHARD_SAMPLES, SHARD_SAMPLES_FULL = 96, 16384
 MAIN_STEPS, MAIN_EVERY = 12, 6
+# phase 20: the bake's capacity, phase 11's 2^17, and its shard size
+BAKE_CAPACITY, BAKE_FILE_SAMPLES = 2 ** 17, 16
 EVAL_BLOCK = 8                 # windows a forward in evaluate
 DEEP = 64                      # phase 16's event-representation depth
 RECIPE_FLAGS = ['--precision', 'bfloat16', '--loss-precision', 'bf16x2',
@@ -458,10 +484,12 @@ def kernel_entry(name, source, replaces, err, times, bound_ms):
             'bound_ms': b_ms, 'bound_by': b_kind, 'library_ms': lib_ms}
 
 
-def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol):
+def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol,
+                 is_raw=True):
     """One step's loss and raw gradients through the kernels against the
     twins; raises unless the loss agrees to ``loss_rtol`` and every
-    gradient to ``grad_tol`` of its leaf's largest value.  Where
+    gradient to ``grad_tol`` of its leaf's largest value (a dense batch,
+    ``is_raw=False``, gives the quantization layer zero gradients).  Where
     ``models`` and ``evaluators`` also hold a ``'golden'`` path (the twins
     in fp32 on the same weights), a bf16 leaf beyond ``grad_tol`` passes
     when the kernels move it at most GAP_FACTOR times as far as bf16
@@ -470,9 +498,11 @@ def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol):
     step_grads = {}
     for name in models:
         m = models[name]
-        loss, _ = make_loss_fn(m, evaluators[name], LOSS_WEIGHTS)(batch)
+        loss, _ = make_loss_fn(m, evaluators[name], LOSS_WEIGHTS,
+                               is_raw)(batch)
         named = dict(m.named_parameters())
-        grads = torch.autograd.grad(loss, list(named.values()))
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    materialize_grads=True)
         torch.cuda.synchronize()
         step_grads[name] = (loss.item(), dict(zip(named, grads)))
     loss_k, grads_k = step_grads['kernel']
@@ -564,7 +594,7 @@ def read_counts(counters):
 
 
 def train(label, model, evaluator, host, device, card, counters,
-          grad_clip_norm=0.0):
+          grad_clip_norm=0.0, is_raw=True):
     """WARMUP + STEPS training steps, each on a host batch copied to the
     card; the launch counters are reset just before and read just after.
     Returns the step function and state, the step time in ms and the
@@ -577,7 +607,7 @@ def train(label, model, evaluator, host, device, card, counters,
                            grad_clip_norm=grad_clip_norm)
     step_fn = make_train_step(model, evaluator,
                               construct_optimizer(args, model),
-                              LOSS_WEIGHTS, 1)
+                              LOSS_WEIGHTS, 1, is_raw=is_raw)
     state = create_train_state()
     losses = []
     torch.cuda.synchronize()
@@ -619,13 +649,21 @@ def check_counts(label, counts, expected):
 
 class LoopClock:
     """The JAX package's timer interface for ``train``: the host clock at
-    each train step's start and the time inside each hook call."""
+    each train step's start, the time inside each hook call and each
+    batch's reading (``batch_construction``: the loader, padding, pinning
+    and the upload's issue), and, given the launch ``counters``, the
+    launches inside the train steps alone."""
     HOOKS = ('serialization', 'validation')
 
-    def __init__(self):
+    def __init__(self, counters=None):
         self.step_starts = []
         self.hook_spans = []        # (steps started so far, name, seconds)
+        self.reads = []             # seconds reading each batch
         self.started = {}
+        self.counters = counters
+        self.step_launches = None if counters is None else {
+            k: 0 for k in counters}
+        self.snapshot = None
 
     def __call__(self, name):
         clock = self
@@ -635,12 +673,19 @@ class LoopClock:
                 clock.started[name] = time.perf_counter()
                 if name == 'train_step':
                     clock.step_starts.append(clock.started[name])
+                    if clock.counters is not None:
+                        clock.snapshot = read_counts(clock.counters)
 
             def stop(self):
+                seconds = time.perf_counter() - clock.started[name]
                 if name in clock.HOOKS:
                     clock.hook_spans.append(
-                        (len(clock.step_starts), name,
-                         time.perf_counter() - clock.started[name]))
+                        (len(clock.step_starts), name, seconds))
+                elif name == 'batch_construction':
+                    clock.reads.append(seconds)
+                elif name == 'train_step' and clock.counters is not None:
+                    for k, n in read_counts(clock.counters).items():
+                        clock.step_launches[k] += n - clock.snapshot[k]
         return Span()
 
     def log(self, *args, **kwargs):
@@ -1027,6 +1072,7 @@ def data_phases(out, capacity, device, card, counters, loop_step_ms):
             or main_counts['corner_values'] != 0 or fwd <= MAIN_STEPS):
         raise AssertionError(f'main(): launches {main_counts}')
     main_ms = clock.step_ms(WARMUP + 1)
+    read_ms = statistics.median(clock.reads[WARMUP:MAIN_STEPS]) * 1e3
     # a step whose interval also read a skipped (oversized) batch
     skips = skipped_after(run / 'log', 8)
     clean = [v for j, v in enumerate(main_ms, WARMUP + 1) if j not in skips]
@@ -1038,8 +1084,9 @@ def data_phases(out, capacity, device, card, counters, loop_step_ms):
              'every one of them read a skipped batch')
           + f' (skips after steps {sorted(skips)}); phase 11\'s run() '
           f'loop step over batches in memory: {loop_step_ms:.3f} ms; both at '
-          f'event capacity {capacity}; main() {main_s:.2f} s in all; card: '
-          f'{card}')
+          f'event capacity {capacity}; reading a batch {read_ms:.3f} ms '
+          f'(median of steps {WARMUP + 1}-{MAIN_STEPS}); main() {main_s:.2f} '
+          f's in all; card: {card}')
 
     # --- 15. the evaluation CLI on the last checkpoint -----------------------
     configs = REPO / 'dvs_of_training_framework_tpu_torch' / 'config'
@@ -1145,7 +1192,7 @@ def data_phases(out, capacity, device, card, counters, loop_step_ms):
               f'{e.device_time_total / 1e3:.3f} ms {e.key[:40]}'
               for e in sorted(ops, key=lambda e: -e.device_time_total)[:4]))
     ctx.staged.model.unlink()
-    return main_counts, eval_counts
+    return main_counts, eval_counts, (statistics.median(main_ms), read_ms)
 
 
 def deep_phase(vox_args, valid, capacity, bhw, host_batch, device, counters,
@@ -1589,6 +1636,340 @@ def sequence_phases(out, device, card, counters, bench_collated):
     return launches, planes_16
 
 
+def shard_files(path):
+    """``{relative path: file}`` of every array file of a shard set's
+    stores (the npy store: a directory a shard, a ``.npy`` an array)."""
+    return {str(f.relative_to(path)): f for shard in path.glob('*.hdf5')
+            for f in sorted(shard.rglob('*')) if f.is_file()}
+
+
+def bake_phase(out, device, card, counters, checkpoint):
+    """Phase 20: the bake tool over phase 14's raw shards with phase 14's
+    checkpoint, in one go and cut at half then resumed; the first baked
+    batch against the CPU twins.  Returns the launch counts of the one-go
+    bake, its numbers for the report and the baked set's path."""
+    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.data.preprocessed import \
+        PreprocessedDataloader
+    from dvs_of_training_framework_tpu_torch.models import init_model
+    from dvs_of_training_framework_tpu_torch.ops import kernel_mlp_cuda
+    from dvs_of_training_framework_tpu_torch.tools import \
+        quantize_preprocessed as bake_tool
+    t_phase = time.perf_counter()
+    shards = out / 'shards'
+    raw = PreprocessedDataloader(shards, 8, is_raw=True, show_progress=False)
+    H, W = next(raw)['images'].shape[-2:]
+    argv = ['-d', device.type, '-mbs', '8', '--event-capacity',
+            str(BAKE_CAPACITY), '--precision', 'bfloat16',
+            '--preprocessed-dataset-path', str(shards), '-sp',
+            str(checkpoint), '--samples-per-file', str(BAKE_FILE_SAMPLES),
+            '--height', str(H), '--width', str(W)]
+
+    def bake(path, size, extra=()):
+        return bake_tool.main(bake_tool.parse_args(
+            ['-o', str(path), '-s', str(size)] + argv + list(extra)))
+
+    baked, cut = out / 'baked', out / 'baked_cut'
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = bake(baked, SHARD_SAMPLES)
+    bake_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    set_mb = sum(f.stat().st_size for f in shard_files(baked).values()) / 1e6
+    loop_s = stats.read_s + stats.device_s + stats.write_s
+    print(f'[20] bake, tools.quantize_preprocessed -mbs 8 --event-capacity '
+          f'{BAKE_CAPACITY} --precision bfloat16 over phase 14\'s raw shards '
+          f'with its step-{MAIN_STEPS} checkpoint: {stats.samples} samples '
+          f'in {stats.batches} batches, {stats.skipped} skipped; '
+          f'{bake_s:.3f} s in all ({stats.samples / bake_s:.2f} samples/s), '
+          f'the loop {loop_s:.3f} s ({stats.samples / loop_s:.2f} '
+          f'samples/s): read {stats.read_s:.3f} s, device '
+          f'{stats.device_s:.3f} s, write {stats.write_s:.3f} s '
+          f'({1e3 * stats.read_s / stats.batches:.2f}, '
+          f'{1e3 * stats.device_s / stats.batches:.2f}, '
+          f'{1e3 * stats.write_s / stats.batches:.2f} ms a batch); '
+          f'{set_mb:.1f} MB on disk; card: {card}')
+    print(f'  launches: {counts}')
+    if (stats.samples != SHARD_SAMPLES or counts['voxelize_fwd'] !=
+            stats.batches or counts['kernel_mlp_fwd'] != stats.batches
+            or any(n for k, n in counts.items()
+                   if k not in ('voxelize_fwd', 'kernel_mlp_fwd'))):
+        raise AssertionError(f'[20] bake: {stats}, launches {counts}')
+
+    # half, then resumed to the whole: the same files, bit for bit
+    first = bake(cut, SHARD_SAMPLES // 2)
+    second = bake(cut, SHARD_SAMPLES, ['--allow-arguments-change'])
+    whole, parts = shard_files(baked), shard_files(cut)
+    same = [k for k in whole if k in parts
+            and filecmp.cmp(whole[k], parts[k], shallow=False)]
+    print(f'[20] bake cut at {SHARD_SAMPLES // 2} samples ({first.batches} '
+          f'batches, {first.skipped} skipped), then resumed to '
+          f'{SHARD_SAMPLES} ({second.batches} batches, {second.skipped} '
+          f'skipped): {len(same)} of {len(whole)} files equal the one-go '
+          'bake\'s byte for byte')
+    if len(same) != len(whole) or parts.keys() != whole.keys():
+        raise AssertionError('[20] the resumed bake differs from one go')
+    shutil.rmtree(cut)
+
+    # the first baked batch against the CPU twins' quantize of the same
+    # padded batch: K2 on the card within phase 3's bound of its twin, and
+    # the rest of the layer on the CPU with the card's K2 output, K1 the
+    # one-thread twin, equal to the card's batch bit for bit
+    raw.set_index(0)
+    skipped = 0
+    while True:
+        collated = next(raw)
+        if collated['events']['x'].size <= BAKE_CAPACITY:
+            break
+        skipped += 1
+    dense = next(PreprocessedDataloader(baked, 8, is_raw=False,
+                                        show_progress=False))
+    for key in ('timestamps', 'images'):
+        if not np.array_equal(dense[key], collated[key]):
+            raise AssertionError(f'[20] the baked batch\'s {key} differ')
+    host = pad_batch(collated, BAKE_CAPACITY)
+    args = bake_tool.parse_args(['-o', str(baked), '-s',
+                                 str(SHARD_SAMPLES)] + argv, is_write=False)
+    cpu = torch.device('cpu')
+    model = init_model(args, cpu)
+    # the layer's K2 twin, which the check below stands the card's K2 in for
+    model.quantization_layer.plain_ops = True
+    plain = kernel_mlp_cuda.plain
+    k2_errs = []
+
+    def card_k2(delta, *params):
+        got = kernel_mlp_cuda.kernel_mlp(
+            delta.to(device), *(p.to(device) for p in params)).cpu()
+        k2_errs.append(check_close(
+            'K2 forward on the batch, card against the CPU twin', got,
+            plain(delta, *params), 2e-6, 2e-6))
+        return got
+
+    def cpu_quantize():
+        batch = host.to(cpu)
+        with torch.inference_mode():
+            return one_thread_twin(model.quantize, batch.events,
+                                   batch.timestamps, batch.sample_idx,
+                                   (H, W))
+
+    kernel_mlp_cuda.plain = card_k2
+    try:
+        with_card_k2 = cpu_quantize()
+    finally:
+        kernel_mlp_cuda.plain = plain
+    twins = cpu_quantize()
+    baked_batch = torch.from_numpy(dense['data'])
+    exact = bits_equal(with_card_k2, baked_batch)
+    diff = (twins - baked_batch).abs()
+    print(f'[20] the first baked batch (after {skipped} skipped) against '
+          f'the CPU twins: with the card\'s K2 output, K1\'s sums and the '
+          f'layer equal it bit for bit: {exact}; the twins\' own K2: max abs '
+          f'diff {diff.max().item():.3e} in {int((diff > 0).sum())} of '
+          f'{diff.numel()} values (bf16 roundings of K2\'s last bits), '
+          f'largest value {baked_batch.abs().max().item():.3e}')
+    if not exact or len(k2_errs) != 1 or not baked_batch.any():
+        raise AssertionError('[20] the baked batch differs from the CPU '
+                             'twins with the card\'s K2, or is empty')
+    print(f'[20] {time.perf_counter() - t_phase:.2f} s')
+    return counts, {'samples': stats.samples, 'seconds': bake_s,
+                    'samples_per_s': stats.samples / bake_s,
+                    'read_s': stats.read_s, 'device_s': stats.device_s,
+                    'write_s': stats.write_s, 'skipped': stats.skipped,
+                    'mb_on_disk': set_mb}, baked
+
+
+def dense_phases(out, device, card, counters, raw_main):
+    """Phases 20-22 over phase 14's set in ``out``: the bake, dense
+    training through ``main()`` on the baked shards, and ``--ev_images``
+    over the raw set with host images.  ``raw_main`` is phase 14's
+    ``main()`` step and reader ms.  Returns the launch counts of each
+    path and the bake's numbers."""
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.data.dataloader import (
+        choose_data_path, get_dataloader, get_trainset_params)
+    from dvs_of_training_framework_tpu_torch.data.preprocessed import \
+        PreprocessedDataloader
+    from dvs_of_training_framework_tpu_torch.losses import MultiScaleLoss
+    from dvs_of_training_framework_tpu_torch.models import evflownet
+    from dvs_of_training_framework_tpu_torch.training.serializer import (
+        Serializer, read_params_file)
+    from dvs_of_training_framework_tpu_torch.utils.tb import SummaryWriter
+    launches = {}
+    checkpoint = out / 'run' / f'step_{MAIN_STEPS}.ckpt'
+    launches['bake'], bake, baked = bake_phase(out, device, card, counters,
+                                               checkpoint)
+    loader = PreprocessedDataloader(baked, 8, is_raw=False,
+                                    show_progress=False)
+    host = [pad_batch(next(loader)) for _ in range(SHARD_SAMPLES // 8)]
+    H, W = host[0].images.shape[-2:]
+    shapes = cli.flow_shapes((H, W))
+
+    def recipe_loss(plain_ops=False):
+        return MultiScaleLoss(shapes, bf16x2=True, plain_ops=plain_ops)
+
+    # --- 21. dense training through main() on the baked shards --------------
+    t_phase = time.perf_counter()
+    run, every = out / 'run_dense', 4
+    argv = ['-d', device.type, '-bs', '8', '-mbs', '8', '-ne',
+            str(MAIN_STEPS), '--ev_images', '--preprocessed-dataset-path',
+            str(baked), '-sp', str(checkpoint), '--representation-start',
+            '1.0', '--height', str(H), '--width', str(W),
+            '--checkpointing_interval', str(every),
+            '--permanent_interval', str(2 * every), '--num_checkpoints', '2',
+            '-vp', str(every), '--event-capacity',
+            str(BAKE_CAPACITY)] + RECIPE_FLAGS
+    clock = LoopClock(counters)
+    run_fn = cli.run
+    cli.run = lambda *a, **k: run_fn(*a, timers=clock, **k)
+    reset(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        cli.main(['-m', str(run)] + argv)
+    finally:
+        cli.run = run_fn
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = read_counts(counters)
+    launches['dense_main'] = counts
+    in_steps = clock.step_launches
+    scalars = read_scalars(run / 'log')
+    losses = scalars.get('General/Train loss', [])
+    val_losses = scalars.get('General/Validation loss', [])
+    steps = Serializer(run).list_known_steps()
+    print(f'[21] train.main() --ev_images on the baked shards, '
+          f'{MAIN_STEPS} production-recipe steps, --representation-start '
+          '1.0, raw validation every 4: losses ' + ' '.join(
+              f'{v:.5f}' for v in losses) + '; validation ' + ' '.join(
+              f'{v:.5f}' for v in val_losses) + f'; checkpoints {steps}')
+    print(f'  launches: {counts}; inside the train steps: {in_steps}')
+    forwards = counts['voxelize_fwd']
+    want_steps = {k: 0 for k in counts}
+    want_steps.update(warp_fwd=4 * MAIN_STEPS, warp_bwd=4 * MAIN_STEPS)
+    if (len(losses) != MAIN_STEPS or len(val_losses) != 5
+            or not np.isfinite(losses + val_losses).all()
+            or steps != [0, 4, 8, 12] or in_steps != want_steps
+            or forwards == 0 or counts['kernel_mlp_fwd'] != forwards
+            or counts['voxelize_bwd'] or counts['kernel_mlp_bwd']
+            or counts['corner_values']
+            or counts['warp_fwd'] != 4 * (MAIN_STEPS + forwards)
+            or counts['warp_bwd'] != 4 * MAIN_STEPS):
+        raise AssertionError(f'[21] main(): losses {losses}, checkpoints '
+                             f'{steps}, launches {counts}, in steps '
+                             f'{in_steps}')
+    main_ms = clock.step_ms(WARMUP + 1)
+    read_ms = statistics.median(clock.reads[WARMUP:MAIN_STEPS]) * 1e3
+    print(f'  dense main() step {statistics.median(main_ms):.3f} ms (median '
+          f'of steps {WARMUP + 1}-{MAIN_STEPS - 1}, hooks excluded: '
+          + ' '.join(f'{v:.1f}' for v in main_ms) + f'); reading a dense '
+          f'batch {read_ms:.3f} ms (median); phase 14\'s raw main() step '
+          f'{raw_main[0]:.3f} ms, reading a raw batch {raw_main[1]:.3f} ms; '
+          f'K1 and K2 forward {forwards} times, in the validation passes '
+          f'only; peak memory {peak_gib:.3f} GiB; main() {main_s:.2f} s in '
+          f'all; card: {card}')
+    resume_against('[21]', out, run, argv, MAIN_STEPS, every)
+    for i in range(2):
+        shutil.rmtree(out / f'{run.name}_resume{i}')
+
+    # one dense recipe step through the kernels against the twins, and
+    # in fp32 through the same fused warp; then the bare step, timed
+    weights = read_params_file(checkpoint)
+    shutil.rmtree(baked)
+
+    def model(dtype, plain_ops=False):
+        m = evflownet.Model(dtype=dtype, plain_ops=plain_ops, device=device)
+        m.load_state_dict(weights)
+        return m
+
+    torch.backends.cudnn.deterministic = True       # as run() sets it
+    batch = host[0].to(device)
+    compare_step('[21] dense golden step (fp32, fused warp)',
+                 {'kernel': model('float32'),
+                  'plain': model('float32', True)},
+                 {'kernel': recipe_loss(), 'plain': recipe_loss(True)},
+                 batch, 1e-5, 1e-4, is_raw=False)
+    compare_step('[21] dense recipe step',
+                 {'kernel': model('bfloat16'),
+                  'plain': model('bfloat16', True)},
+                 {'kernel': recipe_loss(), 'plain': recipe_loss(True)},
+                 batch, 1e-3, 5e-2, is_raw=False)
+    del batch
+    n = WARMUP + STEPS
+    step_model = model('bfloat16')
+    step_fn, state, step_ms, counts = train(
+        '[21] dense recipe, cudnn.deterministic=True', step_model,
+        recipe_loss(), [host[i % len(host)] for i in range(n)], device,
+        card, counters, grad_clip_norm=1.0, is_raw=False)
+    want = {k: 0 for k in counts}
+    want.update(warp_fwd=4 * n, warp_bwd=4 * n)
+    check_counts('dense step', counts, want)
+    launches['dense_step'] = counts
+    trace_steps('[21] cudnn.deterministic=True', step_fn, state, host[:2],
+                device, step_ms)
+    torch.backends.cudnn.deterministic = False
+    del step_fn, state, step_model, host
+    shutil.rmtree(run)
+    torch.cuda.empty_cache()
+    print(f'[21] {time.perf_counter() - t_phase:.2f} s')
+
+    # --- 22. --ev_images over the raw set: images made on the host --------
+    t_phase = time.perf_counter()
+    for name, flags in (('host_images', []),
+                        ('dummy_dense', ['--flownet_path', 'DummyFlowNet'])):
+        path = out / name
+        args = choose_data_path(cli.parse_args(
+            ['-m', str(path), '-d', device.type, '-bs', '8', '-mbs', '8',
+             '-ne', '4', '--ev_images', '--skip-validation', '--height',
+             str(H), '--width', str(W), '--num_workers', '0',
+             '--checkpointing_interval', '4',
+             '--permanent_interval', '4', '--event-capacity',
+             str(BAKE_CAPACITY)] + flags + RECIPE_FLAGS))
+        image_fn = cli.make_event_image_fn(args)
+        image_s = []
+
+        def timed_image_fn(*a):
+            t = time.perf_counter()
+            image = image_fn(*a)
+            image_s.append(time.perf_counter() - t)
+            return image
+
+        trainset = get_trainset_params(args)
+        random.seed(0)
+        np.random.seed(0)
+        reset(counters)
+        t0 = time.perf_counter()
+        _, optimizer, state, _ = cli.run(
+            args, lambda samples: get_dataloader(
+                trainset, sample_idx=samples, event_image_fn=timed_image_fn),
+            lambda: [], SummaryWriter(path / 'log'))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = read_counts(counters)
+        launches[name] = counts
+        losses = read_scalars(path / 'log').get('General/Train loss', [])
+        want = {k: 0 for k in counts}
+        want.update(warp_fwd=16, warp_bwd=16)
+        print(f'[22] run() --ev_images {" ".join(flags) or "(EVFlowNet)"} '
+              'over the raw set, 4 recipe steps: losses ' + ' '.join(
+                  f'{v:.5f}' for v in losses) + f'; compute_event_image '
+              f'{1e3 * statistics.median(image_s):.3f} ms a sample (median '
+              f'of {len(image_s)}; {1e3 * sum(image_s):.1f} ms in all); '
+              f'groups {list(optimizer.groups)}; run() {run_s:.2f} s; '
+              f'launches {counts}; card: {card}')
+        if (state.step != 4 or len(losses) != 4
+                or not np.isfinite(losses).all() or counts != want
+                or len(image_s) < 32):
+            raise AssertionError(f'[22] {name}: step {state.step}, losses '
+                                 f'{losses}, launches {counts}')
+        shutil.rmtree(path)
+    print(f'[22] {time.perf_counter() - t_phase:.2f} s')
+    return launches, bake
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -2014,7 +2395,7 @@ def main():
     # --- 14. to 19. the data path, main() and the evaluation CLI, K1 at
     # depth 64, then sequences and the other plugins over the same set -----
     with tempfile.TemporaryDirectory(prefix='chip_smoke_data_') as out:
-        launches['main'], launches['eval'] = data_phases(
+        launches['main'], launches['eval'], raw_main = data_phases(
             Path(out), capacity, device, card, counters, loop_step_ms)
         torch.cuda.empty_cache()
 
@@ -2029,15 +2410,23 @@ def main():
         paths, planes_16 = sequence_phases(Path(out), device, card,
                                            counters, collated)
         launches.update(paths)
+
+        # --- 20. to 22. the bake, dense training, host images -------------
+        paths, bake = dense_phases(Path(out), device, card, counters,
+                                   raw_main)
+        launches.update(paths)
         for entry in kernels:
             if entry['name'] in ('voxelize_fwd', 'voxelize_bwd'):
                 entry['planes_16'] = planes_16[entry['name'][-3:]]
 
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
-    # evaluation, the dynamic-length run() and DummyFlowNet's
+    # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
+    # dense main() and its bare step, and the host-image run()s
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
-             'recurrent_main', 'recurrent_eval', 'sequences', 'dummy')
+             'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
+             'bake', 'dense_main', 'dense_step', 'host_images',
+             'dummy_dense')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -2050,6 +2439,7 @@ def main():
     if jax_side:
         raise AssertionError(f'the port loaded JAX-side modules: {jax_side}')
 
+    print(json.dumps({'bake': bake}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

@@ -1,6 +1,6 @@
 """Batch schemas: fixed-capacity padded event buffers.
 
-Counterpart of the raw, fixed-capacity path of
+Counterpart of the raw, fixed-capacity path and the dense path of
 ``dvs_of_training_framework_tpu/data/schema.py`` (``EventBuffer``,
 ``Batch``, ``pad_events``, ``layout_sample_slots``, ``pad_batch``) and
 its capacity buckets (``default_buckets``, ``round_up_to_bucket``).  The
@@ -68,33 +68,44 @@ class EventBuffer:
 
 @dataclasses.dataclass
 class Batch:
-    """Training batch (raw event path).
+    """Training batch.
+
+    Exactly one of ``events`` (raw path) and ``data`` (dense path,
+    ``--ev_images``) is set.
 
     Attributes:
-        events: padded EventBuffer.
+        events: padded EventBuffer or None.
+        data: float32 ``[B, C, H, W]`` dense event representation or None.
         timestamps: float32 ``[D]`` image timestamps.
         sample_idx: int32 ``[D]`` sample of each timestamp.
         images: float32 ``[D, 1, H, W]`` grayscale frames at the timestamps.
         size: number of samples B.
     """
-    events: EventBuffer
+    events: object
+    data: object
     timestamps: object
     sample_idx: object
     images: object
     size: int
 
     def to(self, device, non_blocking: bool = True) -> 'Batch':
-        return Batch(events=self.events.to(device, non_blocking),
-                     timestamps=_to(self.timestamps, device, non_blocking),
-                     sample_idx=_to(self.sample_idx, device, non_blocking),
-                     images=_to(self.images, device, non_blocking),
-                     size=self.size)
+        return Batch(
+            events=(None if self.events is None
+                    else self.events.to(device, non_blocking)),
+            data=(None if self.data is None
+                  else _to(self.data, device, non_blocking)),
+            timestamps=_to(self.timestamps, device, non_blocking),
+            sample_idx=_to(self.sample_idx, device, non_blocking),
+            images=_to(self.images, device, non_blocking),
+            size=self.size)
 
     def pin_memory(self) -> 'Batch':
-        return Batch(events=self.events.pin_memory(),
-                     timestamps=_pin(self.timestamps),
-                     sample_idx=_pin(self.sample_idx),
-                     images=_pin(self.images), size=self.size)
+        return Batch(
+            events=None if self.events is None else self.events.pin_memory(),
+            data=None if self.data is None else _pin(self.data),
+            timestamps=_pin(self.timestamps),
+            sample_idx=_pin(self.sample_idx),
+            images=_pin(self.images), size=self.size)
 
 
 def round_up_to_bucket(n: int, buckets) -> int:
@@ -190,15 +201,17 @@ def layout_sample_slots(collated: dict, max_seq_length: int) -> dict:
     return out
 
 
-def pad_batch(collated: dict, capacity: int,
-              sequence_length=None) -> Batch:
-    """Convert a host-collated ragged batch dict into a padded host Batch.
+def pad_batch(collated: dict, capacity=None, sequence_length=None) -> Batch:
+    """Convert a host-collated batch dict into a padded host Batch.
 
     Args:
-        collated: dict with ``events`` (ragged event dict), ``timestamps``,
+        collated: dict with ``events`` (ragged event dict; raw path) or
+            ``data`` (``[B, C, H, W]``; dense path, a decoded quantized
+            batch or ``collate_dense_wrapper``'s), ``timestamps``,
             ``sample_idx``, ``images`` (``[D, H, W]`` or ``[D, 1, H, W]``)
             and ``size``.
-        capacity: fixed event capacity.
+        capacity: fixed event capacity, required on the raw path and
+            unused on the dense one.
         sequence_length: when set (dynamic sample length), re-layout the
             timestamp/image axis into uniform per-sample slots of
             ``sequence_length + 1`` entries (``layout_sample_slots``).
@@ -209,7 +222,15 @@ def pad_batch(collated: dict, capacity: int,
     images = np.asarray(collated['images'], dtype=np.float32)
     if images.ndim == 3:
         images = images[:, None]
-    return Batch(events=pad_events(collated['events'], size, capacity),
+    events = data = None
+    if collated.get('events') is not None:
+        if capacity is None:
+            raise ValueError('a raw batch needs an event capacity')
+        events = pad_events(collated['events'], size, capacity)
+    else:
+        data = np.asarray(collated['data'], dtype=np.float32)
+    return Batch(events=events,
+                 data=data,
                  timestamps=np.asarray(collated['timestamps'],
                                        dtype=np.float32),
                  sample_idx=np.asarray(collated['sample_idx'],

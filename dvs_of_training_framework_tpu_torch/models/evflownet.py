@@ -3,7 +3,8 @@ flow heads.
 
 Counterpart of ``EVFlowNet/net.py`` (``mish``, ``get_activation``,
 ``DenseParams``, ``QuantizationLayer``, ``ResBlock``, ``Predictor``,
-``Model``) and of its plugin's ``OpticalFlow``, in NCHW.
+``Model`` with ``quantize`` and dense input, ``compute_event_image``) and
+of its plugin's ``OpticalFlow``, in NCHW.
 The voxel grid's channel index is ``l * C + c`` for element ``l`` and
 temporal channel ``c``, the order of the JAX model's ``[B, H, W, L*C]``.
 Parameter names follow the flax tree (``predictor.enc0.weight``,
@@ -29,6 +30,7 @@ compute type, where flax applies it.
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -290,7 +292,7 @@ def predicted_windows(timestamps, sample_idx, batch_size, prefix_length):
 
 
 class Model(nn.Module):
-    """EVFlowNet on raw padded events.
+    """EVFlowNet on raw padded events or on dense voxel grids.
 
     ``forward`` returns ``(flows, flow_ts, flow_sample_idx)``, plus the
     decoder features when ``intermediate``: flows are ``[B, 2, H/2^i,
@@ -298,7 +300,10 @@ class Model(nn.Module):
     timestamps of each prediction (the element after the
     ``prefix_length`` context elements), ``flow_sample_idx``
     ``arange(B)``.  The predictor sees the ``max_sequence_length``
-    elements' grids stacked on the channel axis.
+    elements' grids stacked on the channel axis.  With ``raw=False``
+    ``events`` is that dense ``[B, L*C, H, W]`` grid already (a baked
+    shard's, ``quantize``'s, or ``compute_event_image``'s), cast to the
+    compute type on its device; the quantization layer is not run.
     """
 
     def __init__(self, prefix_length=0, suffix_length=0,
@@ -324,12 +329,27 @@ class Model(nn.Module):
         if device is not None:
             self.to(device)
 
-    def forward(self, events, timestamps, sample_idx,
-                imsize: Tuple[int, int], intermediate: bool = False):
+    def quantize(self, events, timestamps, sample_idx,
+                 imsize: Tuple[int, int]):
+        """The learned representation baked into a dense ``[B, L*C, H, W]``
+        float32 grid (``EVFlowNet/net.py`` ``Model.quantize``): the
+        quantization layer's output in the compute type, then float32."""
         batch_size = batch_size_of(timestamps, self.max_sequence_length)
         grid = self.quantization_layer(events, timestamps, sample_idx,
                                        tuple(imsize),
                                        self.max_sequence_length, batch_size)
+        return grid.float()
+
+    def forward(self, events, timestamps, sample_idx,
+                imsize: Tuple[int, int], raw: bool = True,
+                intermediate: bool = False):
+        batch_size = batch_size_of(timestamps, self.max_sequence_length)
+        if raw:
+            grid = self.quantization_layer(
+                events, timestamps, sample_idx, tuple(imsize),
+                self.max_sequence_length, batch_size)
+        else:
+            grid = events.to(self.predictor.dtype)
         flows, features = self.predictor(grid)
         flow_ts, flow_sample_idx = predicted_windows(
             timestamps, sample_idx, batch_size, self.prefix_length)
@@ -346,3 +366,44 @@ class OpticalFlow(BaseOpticalFlow):
         super().__init__(
             imsize, Model, model=model, activation=activation,
             event_representation_depth=event_representation_depth, **kwargs)
+
+
+def compute_event_image(events, start_ts, stop_ts, shape, depth=9,
+                        **_ignored):
+    """Host-side event->image conversion for the --ev_images pipeline.
+
+    The port's copy of ``EVFlowNet/net.py`` ``compute_event_image``: the
+    NumPy analogue of the quantization layer with the fixed triangular
+    kernel (the representation the learnable kernel is initialised to).
+
+    Args:
+        events: float32 ``[N, 5]`` rows ``(x, y, t, p, element_index)``.
+        start_ts, stop_ts: per-element window bounds, each ``[L]``.
+        shape: (H, W).
+        depth: channels per element.
+
+    Returns:
+        float32 ``[L, depth, H, W]`` dense representation.
+    """
+    H, W = shape
+    L = len(start_ts)
+    C = depth
+    out = np.zeros((L, C, H, W), np.float32)
+    x = events[:, 0].astype(np.int64)
+    y = events[:, 1].astype(np.int64)
+    t = events[:, 2]
+    p = events[:, 3]
+    e = events[:, 4].astype(np.int64)
+    start_ts = np.asarray(start_ts)
+    stop_ts = np.asarray(stop_ts)
+    denom = np.maximum(stop_ts[e] - start_ts[e], 1e-9)
+    t_norm = np.clip((t - start_ts[e]) / denom, 0.0, 1.0)
+    centers = np.arange(C, dtype=np.float32) / max(C - 1, 1)
+    weight = np.maximum(0.0, 1.0 - np.abs(t_norm[:, None] - centers[None])
+                        * max(C - 1, 1))
+    values = weight * p[:, None]
+    flat = (((e[:, None] * C + np.arange(C)[None]) * H + y[:, None]) * W
+            + x[:, None])
+    np.add.at(out.reshape(-1), flat.reshape(-1).astype(np.int64),
+              values.reshape(-1))
+    return out

@@ -18,9 +18,18 @@ Plugin contract of the port:
 
 - ``Model`` is a ``torch.nn.Module`` built as ``Model(**kwargs,
   generator=torch.Generator, device=...)`` whose ``forward(events,
-  timestamps, sample_idx, imsize, intermediate=False)`` returns
+  timestamps, sample_idx, imsize, raw=True, intermediate=False)`` returns
   ``(flows, flow_ts, flow_sample_idx[, features])``, ``flows`` a tuple of
-  ``[B, 2, H/2^i, W/2^i]`` tensors for i = 3..0;
+  ``[B, 2, H/2^i, W/2^i]`` tensors for i = 3..0; with ``raw=False``
+  ``events`` is a dense float32 ``[B, C, H, W]`` tensor (``--ev_images``,
+  baked shards), which the model casts to its compute type;
+- ``Model.quantize(events, timestamps, sample_idx, imsize)`` gives the
+  dense float32 representation of a raw batch, as baked by
+  ``tools/quantize_preprocessed.py``;
+- the module's ``compute_event_image(events, start_ts, stop_ts, shape,
+  depth=9)`` turns one sample's ``[N, 5]`` event rows into its
+  ``[L, depth, H, W]`` float32 image on the host (``--ev_images`` over
+  raw data);
 - an optional submodule ``quantization_layer`` makes its parameters the
   representation group of the optimizer, with its delayed schedule
   (reference train_flownet.py:50-54, 78-109); without one the optimizer
@@ -30,8 +39,7 @@ Plugin contract of the port:
   output axes ``output_axes`` knows;
 - ``OpticalFlow`` (a ``BaseOpticalFlow``) is its inference wrapper.
 
-The JAX contract's ``quantize``, ``compute_event_image`` (dense mode and
-baking) and ``vis_flow`` are not part of the port yet.
+The JAX contract's ``vis_flow`` is not part of the port yet.
 """
 import importlib
 import importlib.util
@@ -102,13 +110,15 @@ def load_plugin(flownet_path):
 
 def init_model(args, device):
     """The plugin's ``Model`` from ``args``: ``options2model_kwargs``
-    filtered to what it accepts, seeded from ``--init-seed``, in
+    filtered to what it accepts, seeded from ``--init-seed`` (0 for a
+    parser without it, as the bake tool's), in
     ``--precision`` where it takes a ``dtype``, on ``device``, with the
     ``-sp`` weights (of the port or of the JAX package) when given."""
     module = load_model_class(args.flownet_path)
     kwargs = filter_kwargs(module.Model, options2model_kwargs(args))
     model = module.Model(
-        generator=torch.Generator().manual_seed(args.init_seed),
+        generator=torch.Generator().manual_seed(
+            getattr(args, 'init_seed', 0)),
         device=device, **kwargs)
     if getattr(args, 'sp', None) is not None:
         from ..training.serializer import read_params_file

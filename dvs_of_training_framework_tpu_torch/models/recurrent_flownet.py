@@ -1,10 +1,11 @@
 """RecurrentFlowNet: a ConvGRU over the elements of a sample.
 
-Counterpart of ``RecurrentFlowNet/net.py`` (``ConvGRUCell``, ``Model``)
-and of its plugin's ``OpticalFlow`` (``RecurrentFlowNet/__init__.py``),
-in NCHW.  Each element's voxel grid (EVFlowNet's ``QuantizationLayer``,
-channels ``l * C + c``) passes the ``embed`` 3x3 convolution and the
-activation, then one ConvGRU step; the state after element
+Counterpart of ``RecurrentFlowNet/net.py`` (``ConvGRUCell``, ``Model``,
+``compute_event_image``, which is EVFlowNet's) and of its plugin's
+``OpticalFlow`` (``RecurrentFlowNet/__init__.py``), in NCHW.  Each
+element's voxel grid (EVFlowNet's ``QuantizationLayer``, channels
+``l * C + c``) passes the ``embed`` 3x3 convolution and the activation,
+then one ConvGRU step; the state after element
 ``prefix_length`` goes to EVFlowNet's ``Predictor``.  The loop over the
 ``max_sequence_length`` elements is unrolled, and the elements after the
 prefix are computed as in the reference even where they are unused.
@@ -19,6 +20,9 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
+from . import evflownet
+# the plugin's host-side image for --ev_images is EVFlowNet's
+from .evflownet import compute_event_image  # noqa: F401
 from .evflownet import (Conv, Predictor, QuantizationLayer, batch_size_of,
                         compute_dtype, get_activation, predicted_windows)
 from .optical_flow import BaseOpticalFlow
@@ -45,8 +49,10 @@ class ConvGRUCell(nn.Module):
 
 
 class Model(nn.Module):
-    """RecurrentFlowNet on raw padded events; ``forward`` as EVFlowNet's
-    ``Model`` (the plugin contract of ``models/loader.py``)."""
+    """RecurrentFlowNet on raw padded events or dense grids; ``forward``
+    and ``quantize`` as EVFlowNet's ``Model`` (the plugin contract of
+    ``models/loader.py``).  A dense ``[B, L*C, H, W]`` input feeds the GRU
+    the same per-element slices as the raw path's grid."""
 
     def __init__(self, prefix_length=0, suffix_length=0,
                  max_sequence_length=2, dynamic_sample_length=False,
@@ -75,13 +81,20 @@ class Model(nn.Module):
         if device is not None:
             self.to(device)
 
+    # the dense [B, L*C, H, W] float32 grid, as EVFlowNet's
+    quantize = evflownet.Model.quantize
+
     def forward(self, events, timestamps, sample_idx,
-                imsize: Tuple[int, int], intermediate: bool = False):
+                imsize: Tuple[int, int], raw: bool = True,
+                intermediate: bool = False):
         imsize = tuple(imsize)
         batch_size = batch_size_of(timestamps, self.max_sequence_length)
         L, C = self.max_sequence_length, self.depth
-        grid = self.quantization_layer(events, timestamps, sample_idx,
-                                       imsize, L, batch_size)
+        if raw:
+            grid = self.quantization_layer(events, timestamps, sample_idx,
+                                           imsize, L, batch_size)
+        else:
+            grid = events.to(self.dtype)
         h = torch.zeros(batch_size, self.hidden_channels, *imsize,
                         dtype=self.dtype, device=grid.device)
         state = h

@@ -6,7 +6,10 @@ dvs_of_training_framework_tpu_torch.tools.<name>``:
 - ``sequence2samples``: raw sequences sliced into per-element files
   (``scripts/sequence2samples.py``);
 - ``prepare_batches``: augmented, encoded training shards
-  (``scripts/prepare_batches.py``).
+  (``scripts/prepare_batches.py``);
+- ``quantize_preprocessed``: a trained model's representation baked
+  into dense shards on the device, for ``--ev_images``
+  (``scripts/quantize_preprocessed.py``).
 
 They take the scripts' arguments and write the npy store
 (``data/store.py``), with numpy (and scipy for the ``varied`` motion)

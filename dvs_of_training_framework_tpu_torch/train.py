@@ -14,7 +14,11 @@ validates again and writes the final checkpoint.
 
 ``main`` parses, writes and checks the run's provenance and builds the
 data loaders over the dataset; ``run`` does the rest for any loaders, so
-a caller with batches in memory can drive it without a dataset.  ``run``
+a caller with batches in memory can drive it without a dataset.  With
+``--ev_images`` the model trains on dense batches: baked shards
+(``tools/quantize_preprocessed.py``) through
+``--preprocessed-dataset-path``, or raw data turned into images on the
+host by the plugin's ``compute_event_image``; validation stays raw.  ``run``
 turns cuDNN's nondeterministic algorithms off, so that a resumed run
 repeats the uninterrupted one.  The device defaults to ``cuda``; ``-d
 cuda`` without a card raises.  Flags of
@@ -29,7 +33,7 @@ import torch
 from .data.dataloader import (choose_data_path, get_dataloader,
                               get_trainset_params, get_valset_params)
 from .losses import LOSS_PRECISIONS, MultiScaleLoss
-from .models import init_model
+from .models import init_model, load_model_class
 from .training import (construct_optimizer, create_train_state,
                        current_learning_rates, make_eval_step,
                        make_train_step)
@@ -50,7 +54,6 @@ UNPORTED = (
      14),
     ('--num-processes', lambda a: a.num_processes is not None, 14),
     ('--process-id', lambda a: a.process_id is not None, 14),
-    ('--ev_images', lambda a: a.ev_images, 12),
     ('--timers', lambda a: a.timers, 13),
     ('--profiling', lambda a: a.profiling != 'None', 13),
 )
@@ -90,6 +93,23 @@ def flow_shapes(shape):
     coarse first."""
     h, w = shape
     return [(h // 2 ** s, w // 2 ** s) for s in (3, 2, 1, 0)]
+
+
+def make_event_image_fn(args):
+    """The dataset's host-side event-image function under ``--ev_images``
+    (the plugin's ``compute_event_image`` at
+    ``--event-representation-depth``, as ``train_flownet.py`` builds it),
+    None on the raw path."""
+    if args.is_raw:
+        return None
+    net = load_model_class(args.flownet_path)
+    depth = args.event_representation_depth
+
+    def event_image_fn(events, start_ts, stop_ts, shape):
+        return net.compute_event_image(events, start_ts, stop_ts, shape,
+                                       depth=depth)
+
+    return event_image_fn
 
 
 def pad_sequence_length(args):
@@ -138,8 +158,10 @@ def run(args, train_loader_factory, val_loader_factory, logger,
                                bf16x2=LOSS_PRECISIONS[args.loss_precision])
     tags = shapes2tags(evaluator.shapes)
     sequence_length = pad_sequence_length(args)
+    # dense training (--ev_images) validates raw, as the JAX package does
     train_step = make_train_step(model, evaluator, optimizer,
-                                 args.loss_weights, args.accum_step)
+                                 args.loss_weights, args.accum_step,
+                                 is_raw=args.is_raw)
 
     hooks = {'serialization': SerializationHook(serializer, model,
                                                 optimizer, logger)}
@@ -181,7 +203,8 @@ def run(args, train_loader_factory, val_loader_factory, logger,
         init_step=global_step,
         init_samples_passed=samples_passed,
         max_events_per_batch=args.max_events_per_batch,
-        sequence_length=sequence_length)
+        sequence_length=sequence_length,
+        is_raw=args.is_raw)
 
     hooks['serialization'](args.training_steps, samples_passed)
     if not args.skip_validation:
@@ -201,13 +224,16 @@ def main(argv=None):
     write_execution_info(args.model, execution_info)
 
     trainset = get_trainset_params(args)
+    event_image_fn = make_event_image_fn(args)
 
     def train_loader_factory(samples_passed):
         return get_dataloader(trainset, sample_idx=samples_passed,
-                              process_only_once=args.process_only_once)
+                              process_only_once=args.process_only_once,
+                              event_image_fn=event_image_fn)
 
     def val_loader_factory():
-        return get_dataloader(get_valset_params(args))
+        return get_dataloader(get_valset_params(args),
+                              event_image_fn=event_image_fn)
 
     run(args, train_loader_factory, val_loader_factory,
         SummaryWriter(str(args.log_path)))

@@ -32,7 +32,9 @@ class SerializationHook:
 
 
 class ValidationHook:
-    """Runs a validation pass over the validation loader."""
+    """Runs a validation pass over the validation loader.  Validation is
+    always raw, also when training is dense (``--ev_images``): the
+    validation loader serves raw events (``data/dataloader.py``)."""
 
     def __init__(self, eval_step, loader_factory, logger, tags, device,
                  event_capacity=2 ** 18, sequence_length=None):

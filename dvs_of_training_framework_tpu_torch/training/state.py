@@ -29,14 +29,16 @@ def create_train_state(init_step: int = 0) -> TrainState:
     return TrainState(step=init_step)
 
 
-def make_loss_fn(model, evaluator, weights) -> Callable:
-    """``batch -> (loss, terms)`` for a device Batch on the raw path."""
+def make_loss_fn(model, evaluator, weights, is_raw: bool = True) -> Callable:
+    """``batch -> (loss, terms)`` for a device Batch: its raw ``events``
+    or, with ``is_raw=False``, its dense ``data`` go to the model."""
     weights = tuple(weights)
 
     def loss_fn(batch):
         imsize = tuple(batch.images.shape[-2:])
+        events = batch.events if is_raw else batch.data
         flows, flow_ts, flow_sample_idx = model(
-            batch.events, batch.timestamps, batch.sample_idx, imsize)
+            events, batch.timestamps, batch.sample_idx, imsize, raw=is_raw)
         return combined_loss(evaluator, flows, flow_ts, flow_sample_idx,
                              batch.images, batch.timestamps,
                              batch.sample_idx, weights=weights)
@@ -45,23 +47,27 @@ def make_loss_fn(model, evaluator, weights) -> Callable:
 
 
 def make_train_step(model, evaluator, optimizer, weights,
-                    accumulation_steps: int):
+                    accumulation_steps: int, is_raw: bool = True):
     """Build the training step.
 
     Returns ``step_fn(state, batch) -> (state, (loss, terms))``; the state
     is updated in place, ``loss`` is already divided by
     ``accumulation_steps`` and ``terms`` are this microbatch's per-scale
     values.  With accumulation the optimizer applies the mean of the
-    microbatch gradients on every ``accumulation_steps``-th call.
+    microbatch gradients on every ``accumulation_steps``-th call.  A
+    parameter the loss does not reach (the quantization layer on the
+    dense path, ``is_raw=False``) gets a zero gradient, as under
+    ``jax.grad``, so the optimizer still decays it and moves its slow
+    weights.
     """
-    loss_fn = make_loss_fn(model, evaluator, weights)
+    loss_fn = make_loss_fn(model, evaluator, weights, is_raw)
     named = dict(model.named_parameters())
     inv = 1.0 / accumulation_steps
 
     def step_fn(state, batch):
         loss, terms = loss_fn(batch)
-        grads = dict(zip(named, torch.autograd.grad(loss,
-                                                    list(named.values()))))
+        grads = dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()), materialize_grads=True)))
         if accumulation_steps == 1:
             optimizer.step(grads)
             state.step += 1
@@ -82,10 +88,11 @@ def make_train_step(model, evaluator, optimizer, weights,
     return step_fn
 
 
-def make_eval_step(model, evaluator, weights) -> Callable:
+def make_eval_step(model, evaluator, weights,
+                   is_raw: bool = True) -> Callable:
     """Validation step: ``batch -> (loss, terms)`` with no autograd graph.
     The parameters are the model's own."""
-    loss_fn = make_loss_fn(model, evaluator, weights)
+    loss_fn = make_loss_fn(model, evaluator, weights, is_raw)
 
     def eval_step(batch):
         with torch.no_grad():

@@ -3,7 +3,8 @@
 Counterpart of ``dvs_of_training_framework_tpu/training/train.py``
 (``train``, ``validate``, ``make_hook_periodic``, ``shapes2tags``,
 ``add_loss``, ``batch_num_events``), on the single-batch path: oversized
-batches are skipped and counted, per-scale losses are logged against
+raw batches are skipped and counted (a dense batch has no events and is
+never skipped), per-scale losses are logged against
 samples passed, periodic hooks run at optimizer-step boundaries, and a
 validation pass logs the mean loss terms.  The TensorBoard tags and
 values are the JAX loop's.
@@ -58,7 +59,9 @@ def add_loss(loss_sum, loss_values):
     return [x + float(y) for x, y in zip(loss_sum, loss_values)]
 
 
-def batch_num_events(batch):
+def batch_num_events(batch, is_raw=True):
+    if not is_raw:
+        return 0
     return int(batch['events']['x'].size)
 
 
@@ -96,7 +99,8 @@ def train(train_step,
           max_events_per_batch: int = 350000,
           on_state_update=None,
           metric_flush_steps: int = 16,
-          sequence_length=None):
+          sequence_length=None,
+          is_raw=True):
     """Run the training loop.
 
     Args:
@@ -118,6 +122,8 @@ def train(train_step,
         metric_flush_steps: optimizer steps between metric fetches.
         sequence_length: per-sample slot count for dynamic sample
             lengths (``pad_batch``), None for static lengths.
+        is_raw: the loader gives raw event batches; False for dense ones
+            (``--ev_images``), which take no event capacity.
 
     Returns:
         (state, samples_passed)
@@ -133,10 +139,10 @@ def train(train_step,
     capacity = min(event_capacity, max_events_per_batch)
 
     def make_batch(host_batch):
-        num_events = batch_num_events(host_batch)
+        num_events = batch_num_events(host_batch, is_raw)
         if num_events > capacity:
             raise OverflowError(f'{num_events} events > capacity {capacity}')
-        return pad_batch(host_batch, capacity,
+        return pad_batch(host_batch, capacity if is_raw else None,
                          sequence_length=sequence_length)
 
     def flush_metrics():
@@ -172,7 +178,7 @@ def train(train_step,
     def report_skip(host_batch):
         nonlocal num_skipped
         num_skipped += 1
-        num_events = batch_num_events(host_batch)
+        num_events = batch_num_events(host_batch, is_raw)
         num_processed = global_step - init_batch
         print(f'Skipping batch with {num_events} events')
         if num_events > capacity:

@@ -5,7 +5,7 @@ Mirrors the JAX package's tests/training/test_cli.py (end to end, resume,
 the guard against changed arguments) with the same fixture layout, on the
 CPU, with the port's EVFlowNet at 64x64, batch 2, two steps; and adds
 ``--ema-decay`` with ``finalize``, one refused flag for each ROADMAP item
-not ported yet, the flags of the ported items 10 and 11 accepted, the
+not ported yet, the flags of the ported items 10-12 accepted, the
 refusal of ``-d cuda`` without a card, and one ignored TPU-only flag
 that logs its line.
 """
@@ -123,7 +123,6 @@ def test_train_cli_ema_finalize(tmp_path, mvsec_layout):
 
 
 @pytest.mark.parametrize('flags, item', [
-    (['--ev_images'], 12),
     (['--timers'], 13),
     (['--profiling', 'JAX'], 13),
     (['--mesh', 'data:2'], 14),
@@ -141,6 +140,7 @@ def test_train_cli_refuses_unported_flags(tmp_path, flags, item):
      '--suffix-length', '1'],
     ['--max-sequence-length', '2', '--dynamic-sample-length'],
     ['--mish'],
+    ['--ev_images'],
 ])
 def test_train_cli_accepts_ported_flags(tmp_path, flags):
     args = cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
@@ -148,6 +148,8 @@ def test_train_cli_accepts_ported_flags(tmp_path, flags):
     assert model.max_sequence_length == args.max_sequence_length
     assert cli.pad_sequence_length(args) == (
         args.max_sequence_length if args.dynamic_sample_length else None)
+    assert args.is_raw == ('--ev_images' not in flags)
+    assert (cli.make_event_image_fn(args) is None) == args.is_raw
 
 
 def test_train_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):

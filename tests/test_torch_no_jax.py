@@ -17,7 +17,9 @@ which import flax) was loaded:
   per-element files, encoded shards), the training CLI's ``main`` trains
   2 steps on the shards with validation on a raw split, checkpointing,
   and a second ``main`` resumes and takes a third; then the evaluation
-  CLI's ``main`` scores the EMA of the last checkpoint; then
+  CLI's ``main`` scores the EMA of the last checkpoint; the bake tool
+  bakes that checkpoint's representation into dense shards, and
+  ``main`` trains a step on them with ``--ev_images``; then
   ``main`` trains RecurrentFlowNet (``--flownet_path RecurrentFlowNet``)
   a step on the raw split's 2-element samples.
 - CPU tensors go to the plain twins and leave the launch counters alone.
@@ -177,7 +179,8 @@ import numpy as np
 from dvs_of_training_framework_tpu_torch import test, train
 from dvs_of_training_framework_tpu_torch.data import synthetic
 from dvs_of_training_framework_tpu_torch.tools import (
-    make_synthetic_mvsec, prepare_batches, sequence2samples)
+    make_synthetic_mvsec, prepare_batches, quantize_preprocessed,
+    sequence2samples)
 from dvs_of_training_framework_tpu_torch.training.serializer import \
     Serializer
 
@@ -224,6 +227,20 @@ with tempfile.TemporaryDirectory() as tmp:
                'cpu', '--use-ema', '--test-config',
                str(tmp / 'testing.json')])
     assert (tmp / 'eval' / 'step_3_ema.pkl').is_file()
+    # bake the run's representation, then train on the dense shards
+    baked = tmp / 'baked'
+    stats = quantize_preprocessed.main(quantize_preprocessed.parse_args([
+        '-o', str(baked), '-d', 'cpu', '-s', '4', '--samples-per-file',
+        '2', '-mbs', '2', '--height', '32', '--width', '32',
+        '--num_workers', '0', '--preprocessed-dataset-path', str(shards),
+        '--event-capacity', '65536', '-sp', str(run / 'step_3.ckpt')]))
+    assert stats.samples == 4
+    train.main(['-m', str(tmp / 'dense'), '-d', 'cpu', '-bs', '2', '-mbs',
+                '2', '-ne', '1', '--height', '32', '--width', '32',
+                '--num_workers', '0', '--event-capacity', '65536',
+                '--ev_images', '--preprocessed-dataset-path', str(baked),
+                '-sp', str(run / 'step_3.ckpt'), '-vp', '1'])
+    assert Serializer(tmp / 'dense').list_known_steps() == [0, 1]
     train.main(['-m', str(tmp / 'recurrent'), '-d', 'cpu', '-bs', '2',
                 '-mbs', '2', '-ne', '1', '--height', '32', '--width', '32',
                 '--num_workers', '0', '--event-capacity', '65536',
