@@ -133,9 +133,36 @@ Phases:
     steps timed and traced as phases 9-10;
 22. ``--ev_images`` over the raw set: 4 steps of ``run()`` with EVFlowNet's
     ``compute_event_image`` on the host (its ms a sample), then
-    DummyFlowNet's.
+    DummyFlowNet's;
+23. the bare sharded step (``parallel.make_sharded_train_step``) on the
+    first bench batch, golden and recipe: a one-rank NCCL group
+    (``data:1``) equals the unsharded step bit for bit (loss, the
+    gradients it applies, the parameters after it); then two ranks
+    sharing the card (gloo, spawned), ``data:2`` and ``data:1,event:2``,
+    each against the single-process step on the whole batch: golden
+    within tests/training/test_parallel.py's tolerances (loss 1e-4, the
+    parameters after the step rtol 2e-3, atol 2e-5), the recipe by phase
+    6's rule (loss 1e-3, each gradient 5e-2 of its leaf or within 4x the
+    bf16-vs-fp32 gap); the two ranks' parameters equal bit for bit;
+    each rank's ms a step, the all-reduce's host time and the bytes
+    reduced a step on each axis;
+24. ``train.main(['--mesh', 'data:2', ...])`` over phase 14's shards: 12
+    production-recipe steps on two spawned ranks sharing the card,
+    checkpoints and sharded validation every 4; rank 0 alone writes,
+    ``samples_passed`` counts global samples, two copies cut back to
+    checkpoint 8 resume through ``main()`` held to phase 12's rule; then
+    ``--mesh data:1,event:2`` 4 steps over the raw split (event rank 0
+    reads and sends each batch, each rank voxelizes half its events);
+25. two processes started with the multi-host flags (``--coordinator-
+    address``, ``--num-processes 2``, ``--process-id``) over phase 14's
+    shards (strided reads, the sharded skip rule), 8 recipe steps with
+    ``--timers --profiling JAX``: rank 0 alone prints the timer lines
+    (their medians printed), its trace names the kernels, and its
+    TensorBoard log holds the device monitor's scalars.
 
-Every phase from 17 on prints its own seconds.  Prints the kernels as
+Every phase from 17 on prints its own seconds.  A phase that starts
+processes puts a time limit on them, and a rank that fails stops the
+others and fails the phase.  Prints the kernels as
 one JSON line (each with its time, the twin's, one PyTorch call's where
 one computes the same function, its bound at the published H100 SXM
 peaks, its launches on the main paths in all and on each path), the
@@ -151,6 +178,7 @@ import math
 import os
 import pickle
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -197,6 +225,19 @@ DEEP = 64                      # phase 16's event-representation depth
 RECIPE_FLAGS = ['--precision', 'bfloat16', '--loss-precision', 'bf16x2',
                 '--grad-clip-norm', '1.0', '--ema-decay', '0.999', '-lr',
                 '1e-3', '--half_life', '20000', '--num-warmup-steps', '200']
+# the bare steps' optimizer: RANGER at lr 1e-3, wd 1e-4, no warm-up, the
+# representation group frozen for the first half of a long run
+BARE_ARGS = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
+                            half_life=100000, num_warmup_steps=0,
+                            training_steps=1000000, rs=0.5)
+# phases 23-25: the meshes of two ranks sharing the card, and the steps
+# of the spawned mesh's main() and of the multi-host flags' main()
+MESHES = ('data:2', 'data:1,event:2')
+MESH_STEPS, HOSTS_STEPS = 12, 8
+# the kernels that phase 25's trace of a training step must name
+TRACE_KERNELS = ('voxelize_tile_kernel', 'voxelize_bwd_kernel',
+                 'kernel_mlp_fwd_kernel', 'kernel_mlp_bwd_kernel',
+                 'warp_fwd_kernel', 'warp_bwd_kernel')
 
 
 MLP_GRADS = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
@@ -512,7 +553,20 @@ def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol,
           f'{loss_p:.7f} (rel {rel:.2e}, tol {loss_rtol:g})')
     if not rel <= loss_rtol:
         raise AssertionError(f'{label}: loss differs from the twin path')
-    golden = step_grads.get('golden', (None, None))[1]
+    check_grads(label, grads_k, grads_p,
+                step_grads.get('golden', (None, None))[1], grad_tol)
+    qgrads = [pn for pn in grads_k if pn.startswith('quantization_layer.')]
+    print('  quantization_layer gradients: ' + ', '.join(
+        f'{pn.split(".", 1)[1]} {grads_k[pn].abs().max().item():.3e}'
+        for pn in qgrads))
+
+
+def check_grads(label, grads_k, grads_p, golden, grad_tol):
+    """Raise unless every gradient of ``grads_k`` is within ``grad_tol`` of
+    its leaf's largest value of ``grads_p``'s, or, where ``golden`` (the
+    fp32 twin's gradients on the same weights) is given, a bf16 leaf
+    beyond it moves at most GAP_FACTOR times as far as bf16 itself does:
+    max |kernel - twin| <= GAP_FACTOR max |twin - golden|."""
     worst, bad, by_gap = (0.0, ''), [], []
     for pname, want in grads_p.items():
         got = grads_k[pname]
@@ -536,10 +590,6 @@ def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol,
         print(f'  {len(by_gap)} of them beyond {grad_tol:g} of the leaf, '
               f'within {GAP_FACTOR:g}x the twin\'s own bf16-vs-fp32 gap: '
               + '; '.join(by_gap))
-    qgrads = [pn for pn in grads_k if pn.startswith('quantization_layer.')]
-    print('  quantization_layer gradients: ' + ', '.join(
-        f'{pn.split(".", 1)[1]} {grads_k[pn].abs().max().item():.3e}'
-        for pn in qgrads))
 
 
 def repeat_step(model, evaluator, batch):
@@ -601,9 +651,7 @@ def train(label, model, evaluator, host, device, card, counters,
     launch counts."""
     from dvs_of_training_framework_tpu_torch.training import (
         construct_optimizer, create_train_state, make_train_step)
-    args = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
-                           half_life=100000, num_warmup_steps=0,
-                           training_steps=1000000, rs=0.5,
+    args = SimpleNamespace(**vars(BARE_ARGS),
                            grad_clip_norm=grad_clip_norm)
     step_fn = make_train_step(model, evaluator,
                               construct_optimizer(args, model),
@@ -642,9 +690,8 @@ def train(label, model, evaluator, host, device, card, counters,
 def check_counts(label, counts, expected):
     for name, n in counts.items():
         if n != expected[name]:
-            raise AssertionError(f'{label}: {name} launched {n} times in '
-                                 f'{WARMUP + STEPS} steps, expected '
-                                 f'{expected[name]}')
+            raise AssertionError(f'{label}: {name} launched {n} times, '
+                                 f'expected {expected[name]}')
 
 
 class LoopClock:
@@ -1970,6 +2017,475 @@ def dense_phases(out, device, card, counters, raw_main):
     return launches, bake
 
 
+class RecordingOptimizer:
+    """The optimizer, keeping a copy of the first gradients it is given
+    (a sharded step hands it the data group's mean)."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+        self.grads = None
+
+    def step(self, grads):
+        if self.grads is None:
+            self.grads = {k: g.detach().clone() for k, g in grads.items()}
+        self.optimizer.step(grads)
+
+
+def bench_model(config, device, plain_ops=False, seed=0):
+    from dvs_of_training_framework_tpu_torch.models import Model
+    return Model(event_representation_depth=9, base_channels=64,
+                 plain_ops=plain_ops, dtype=CONFIGS[config][0],
+                 generator=torch.Generator().manual_seed(seed),
+                 device=device)
+
+
+def bench_step(config, device, groups=None, timers=None):
+    """A fresh bench model of ``config`` and its training step (RANGER,
+    accumulation 1): the single-device step, or the sharded one of
+    ``groups``; returns (model, recording optimizer, step)."""
+    from dvs_of_training_framework_tpu_torch.losses import (
+        LOSS_PRECISIONS, MultiScaleLoss)
+    from dvs_of_training_framework_tpu_torch.parallel import \
+        make_sharded_train_step
+    from dvs_of_training_framework_tpu_torch.training import (
+        construct_optimizer, make_train_step)
+    from dvs_of_training_framework_tpu_torch.data import synthetic
+    H, W = synthetic.IMSIZE
+    model = bench_model(config, device)
+    optimizer = RecordingOptimizer(construct_optimizer(BARE_ARGS, model))
+    evaluator = MultiScaleLoss(
+        [(H // 2 ** i, W // 2 ** i) for i in range(4)][::-1],
+        bf16x2=LOSS_PRECISIONS[CONFIGS[config][1]])
+    if groups is None:
+        step = make_train_step(model, evaluator, optimizer, LOSS_WEIGHTS, 1)
+    else:
+        step = make_sharded_train_step(
+            model, evaluator, optimizer, LOSS_WEIGHTS, 1, groups,
+            event_axis=groups.mesh.event > 1, timers=timers)
+    return model, optimizer, step
+
+
+def rank_batches(groups, collated, capacity):
+    """This rank's host piece of each bench batch, split as
+    ``train.run`` splits it, each piece padded to ``capacity``."""
+    from dvs_of_training_framework_tpu_torch.parallel import (
+        shard_of, split_batch_for_mesh)
+    mesh = groups.mesh
+    return [shard_of(split_batch_for_mesh(
+        c, mesh.data, capacity, event_shards=mesh.event), groups.data_index,
+        groups.event_index if mesh.event > 1 else None) for c in collated]
+
+
+def sharded_step_worker(rank, out, port):
+    """Phase 23's rank ``rank`` of 2, sharing the card with the other
+    (gloo): for each configuration and mesh, one step from the bench
+    weights on the first bench batch (its loss, the gradients it applied
+    and the parameters after it, saved to ``out``), then WARMUP + STEPS
+    timed steps, the all-reduce timed on its own; the kernels' launches
+    over the worker's life."""
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+    from dvs_of_training_framework_tpu_torch.ops import launch_counts
+    from dvs_of_training_framework_tpu_torch.parallel import (
+        MeshGroups, initialize, parse_mesh)
+    from dvs_of_training_framework_tpu_torch.training import \
+        create_train_state
+    from dvs_of_training_framework_tpu_torch.utils.timer import \
+        SynchronizedWallClockTimer
+    out = Path(out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = initialize(f'127.0.0.1:{port}', 2, rank, 'cuda')
+    collated, capacity = torch.load(out / 'batches.pt', weights_only=False)
+    timing = {}
+    for config in CONFIGS:
+        for spec in MESHES:
+            groups = MeshGroups(parse_mesh(spec), device)
+            timers = SynchronizedWallClockTimer(device)
+            model, optimizer, step = bench_step(config, device, groups,
+                                                timers)
+            pieces = rank_batches(groups, collated, capacity)
+            state, (loss, _) = step(create_train_state(),
+                                    pieces[0].to(device))
+            torch.save({'loss': loss.item(), 'grads': {
+                k: g.cpu() for k, g in optimizer.grads.items()},
+                'params': {k: v.cpu() for k, v in
+                           model.state_dict().items()}},
+                out / f'{config}_{spec}_{rank}.pt')
+            for i in range(WARMUP):
+                step(state, pieces[(i + 1) % len(pieces)].to(device))
+            torch.cuda.synchronize(device)
+            timers('all_reduce').reset()
+            t0 = time.perf_counter()
+            for i in range(STEPS):
+                step(state, pieces[i % len(pieces)].to(device))
+            torch.cuda.synchronize(device)
+            n_params = sum(p.numel() for p in model.parameters())
+            n_quant = sum(p.numel() for n, p in model.named_parameters()
+                          if n.startswith('quantization_layer.'))
+            grid = pieces[0].size * 9 * pieces[0].images.shape[-1] ** 2
+            timing[f'{config} {spec}'] = {
+                'step_ms': (time.perf_counter() - t0) / STEPS * 1e3,
+                'all_reduce_ms': timers('all_reduce').elapsed() / STEPS
+                * 1e3,
+                # one flat fp32 buffer on the data axis (gradients, loss,
+                # 12 terms); the partial grid and the quantization
+                # gradients on the event axis
+                'data_bytes': 4 * (n_params + 13),
+                'event_bytes': (4 * (grid + n_quant)
+                                if groups.mesh.event > 1 else 0)}
+            del model, optimizer, step, state
+    torch.save({'timing': timing, 'launches': launch_counts(),
+                'device': str(device)}, out / f'worker_{rank}.pt')
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def join_spawned(context, seconds, label):
+    """Wait for a ``torch.multiprocessing`` context; a worker that fails
+    stops the others (``join`` raises), and so does the time limit."""
+    deadline = time.monotonic() + seconds
+    while not context.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in context.processes:
+                proc.kill()
+            raise AssertionError(f'{label}: the workers outlived their '
+                                 f'{seconds} s')
+
+
+def run_ranks(commands, seconds, label):
+    """Run ``commands`` together, each in a session of its own; returns
+    their outputs.  One that fails, or the time limit, kills them all and
+    raises with the outputs."""
+    import signal
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=REPO,
+                              start_new_session=True) for cmd in commands]
+    outputs = [None] * len(procs)
+    failure = None
+    deadline = time.monotonic() + seconds
+    try:
+        for i, proc in enumerate(procs):
+            outputs[i] = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1))[0]
+            if proc.returncode != 0:
+                failure = f'rank {i} exited {proc.returncode}'
+                break
+    except subprocess.TimeoutExpired:
+        failure = f'outlived its {seconds} s'
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    if failure:
+        raise AssertionError(f'{label}: {failure}:\n' + '\n'.join(
+            f'--- rank {i}:\n{(o or "")[-4000:]}'
+            for i, o in enumerate(outputs)))
+    return outputs
+
+
+def check_run_dir(label, run, ranks, steps, batch):
+    """test_multihost.py's checks of a run of 2 ranks: each took
+    ``steps`` steps over ``steps * batch`` global samples, the final
+    checkpoint holds them, and every TensorBoard file is rank 0's."""
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+    if [(r['rank'], r['step'], r['samples_passed']) for r in ranks] != \
+            [(0, steps, steps * batch), (1, steps, steps * batch)]:
+        raise AssertionError(f'{label}: ranks {ranks}')
+    saved = Serializer(run).read_state_dict(steps)
+    files = [p.name for p in (run / 'log').glob('events.out.tfevents.*')]
+    writers = {re.search(r'\.(\d+)\.0(\.monitor)?$', name).group(1)
+               for name in files}
+    if (int(saved['samples_passed']) != steps * batch
+            or not (run / 'parameters').is_file()
+            or writers != {str(ranks[0]['pid'])}):
+        raise AssertionError(f'{label}: samples {saved["samples_passed"]}, '
+                             f'TensorBoard files {files}, rank 0 pid '
+                             f'{ranks[0]["pid"]}')
+    return saved
+
+
+def check_rank_launches(label, ranks, steps):
+    """Each rank's train steps ran K1 and K2 forward and backward and the
+    fused warp 4 times each way (validation adds forwards)."""
+    for r in ranks:
+        n = r['launches']
+        if (n['voxelize_bwd'] != steps or n['kernel_mlp_bwd'] != steps
+                or n['warp_bwd'] != 4 * steps
+                or n['kernel_mlp_fwd'] != n['voxelize_fwd']
+                or n['warp_fwd'] != 4 * n['voxelize_fwd']
+                or n['voxelize_fwd'] < steps or n['corner_values'] != 0):
+            raise AssertionError(f'{label}: rank {r["rank"]} launches {n}')
+    return {k: sum(r['launches'][k] for r in ranks)
+            for k in ranks[0]['launches']}
+
+
+def mesh_phases(out, collated, capacity, device, card):
+    """Phases 23-25 over phase 14's set in ``out``; returns the launch
+    counts of each path and the numbers of the mesh JSON line."""
+    import torch.distributed as dist
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.ops import launch_counts
+    from dvs_of_training_framework_tpu_torch.parallel import (
+        MeshGroups, parse_mesh)
+    from dvs_of_training_framework_tpu_torch.parallel.distributed import \
+        free_port
+    from dvs_of_training_framework_tpu_torch.training import \
+        create_train_state
+    launches, numbers = {}, {}
+
+    # --- 23. the bare sharded step ---------------------------------------
+    t_phase = time.perf_counter()
+    work = out / 'sharded_step'
+    work.mkdir()
+    torch.save((collated[:4], capacity), work / 'batches.pt')
+    torch.backends.cudnn.deterministic = True
+    whole = {}
+    for config in CONFIGS:
+        model, optimizer, step = bench_step(config, device)
+        _, (loss, _) = step(create_train_state(),
+                            pad_batch(collated[0], capacity).to(device))
+        whole[config] = (loss.item(), optimizer.grads,
+                         {k: v.detach().clone()
+                          for k, v in model.state_dict().items()})
+        del model, optimizer, step
+    # a one-rank NCCL group: the sharded step is the unsharded one
+    dist.init_process_group('nccl', store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        groups = MeshGroups(parse_mesh('data:1'), device)
+        for config in CONFIGS:
+            model, optimizer, step = bench_step(config, device, groups)
+            _, (loss, _) = step(create_train_state(),
+                                pad_batch(collated[0], capacity).to(device))
+            want_loss, want_grads, want_params = whole[config]
+            same = [bits_equal(v, want_params[k])
+                    for k, v in model.state_dict().items()]
+            same_grads = [bits_equal(g, want_grads[k])
+                          for k, g in optimizer.grads.items()]
+            print(f'[23] {config}, a one-rank NCCL group (data:1) against '
+                  f'the unsharded step: loss {loss.item():.7f} vs '
+                  f'{want_loss:.7f}; {sum(same_grads)}/{len(same_grads)} '
+                  f'gradients and {sum(same)}/{len(same)} parameters equal '
+                  'bit for bit')
+            if not (loss.item() == want_loss and all(same)
+                    and all(same_grads)):
+                differ = [k for k, ok in zip(model.state_dict(), same)
+                          if not ok]
+                raise AssertionError(
+                    f'[23] {config}: the one-rank NCCL step differs from '
+                    f'the unsharded one in {differ}; the unsharded '
+                    'gradients\' strides: ' + ', '.join(
+                        f'{k} {tuple(want_grads[k].stride())}'
+                        for k in differ if k in want_grads))
+            del model, optimizer, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    context = torch.multiprocessing.start_processes(
+        sharded_step_worker, args=(str(work), free_port()), nprocs=2,
+        join=False, start_method='spawn')
+    join_spawned(context, 600, '[23]')
+    workers = [torch.load(work / f'worker_{r}.pt', weights_only=False)
+               for r in range(2)]
+    for config in CONFIGS:
+        want_loss, want_grads, want_params = whole[config]
+        for spec in MESHES:
+            ranks = [torch.load(work / f'{config}_{spec}_{r}.pt',
+                                weights_only=False) for r in range(2)]
+            label = f'[23] {config} {spec}'
+            rel = abs(ranks[0]['loss'] - want_loss) / abs(want_loss)
+            loss_rtol = 1e-4 if config == 'golden' else 1e-3
+            print(f'{label}, two ranks sharing the card (gloo) against the '
+                  f'single-process step on the whole batch: loss '
+                  f'{ranks[0]["loss"]:.7f} vs {want_loss:.7f} (rel '
+                  f'{rel:.2e}, tol {loss_rtol:g})')
+            if not rel <= loss_rtol:
+                raise AssertionError(f'{label}: the loss differs')
+            bitwise = sum(bits_equal(ranks[0]['params'][k],
+                                     ranks[1]['params'][k])
+                          for k in want_params)
+            print(f'  the two ranks\' parameters after the step: {bitwise}'
+                  f'/{len(want_params)} equal bit for bit')
+            if bitwise != len(want_params):
+                raise AssertionError(f'{label}: the replicas differ')
+            got = {k: v.to(device) for k, v in ranks[0]['grads'].items()}
+            if config == 'golden':
+                # tests/training/test_parallel.py's tolerances
+                worst = max(
+                    ((ranks[0]['params'][k].to(device) - want).abs()
+                     / (2e-5 + 2e-3 * want.abs())).max().item()
+                    for k, want in want_params.items())
+                diff = max(max_abs(ranks[0]['params'][k].to(device), want)
+                           for k, want in want_params.items())
+                print(f'  parameters after the step against the single-'
+                      f'process step: max abs diff {diff:.3e}, at most '
+                      f'{worst:.3f} of rtol 2e-3, atol 2e-5 (must be <= 1)')
+                if worst > 1:
+                    raise AssertionError(f'{label}: parameters differ')
+            else:
+                check_grads(label, got, want_grads, whole['golden'][1],
+                            5e-2)
+    for key, t in workers[0]['timing'].items():
+        t1 = workers[1]['timing'][key]
+        print(f'[23] {key}: {t["step_ms"]:.3f} and {t1["step_ms"]:.3f} ms '
+              f'a step (ranks 0, 1; {STEPS} steps after {WARMUP}), the '
+              f'all-reduce {t["all_reduce_ms"]:.3f} and '
+              f'{t1["all_reduce_ms"]:.3f} ms of host time a step ('
+              f'{100 * t["all_reduce_ms"] / t["step_ms"]:.1f}%), '
+              f'{t["data_bytes"] / 1e6:.2f} MB reduced on the data axis and '
+              f'{t["event_bytes"] / 1e6:.2f} MB on the event axis a step; '
+              f'card: {card}')
+    numbers['sharded_step'] = {k: [w['timing'][k] for w in workers]
+                               for k in workers[0]['timing']}
+    # each worker: both configurations on both meshes, 1 + WARMUP + STEPS
+    # steps each; the fused warp in the recipe's only
+    n = 2 * len(MESHES) * (1 + WARMUP + STEPS)
+    for w in workers:
+        check_counts('[23]', w['launches'], {
+            'voxelize_fwd': n, 'voxelize_bwd': n, 'kernel_mlp_fwd': n,
+            'kernel_mlp_bwd': n, 'corner_values': 0, 'warp_fwd': 2 * n,
+            'warp_bwd': 2 * n})
+    launches['sharded_step'] = {k: sum(w['launches'][k] for w in workers)
+                                for k in workers[0]['launches']}
+    print(f'  launches of the two workers: {launches["sharded_step"]}')
+    del whole
+    torch.cuda.empty_cache()
+    print(f'[23] {time.perf_counter() - t_phase:.2f} s')
+
+    # --- 24. train.main() --mesh: spawned ranks ----------------------------
+    t_phase = time.perf_counter()
+    shards, run = out / 'shards', out / 'run_mesh'
+    every = 4
+    # a data shard's device buffer holds capacity / 2: twice phase 11's
+    # capacity gives each rank's 4 samples phase 11's 2^17 events
+    argv = ['-d', device.type, '-bs', '8', '-mbs', '8', '-ne',
+            str(MESH_STEPS), '--preprocessed-dataset-path', str(shards),
+            '--checkpointing_interval', str(every), '--permanent_interval',
+            str(every), '-vp', str(every), '--event-capacity',
+            str(2 * capacity), '--mesh', 'data:2'] + RECIPE_FLAGS
+    before = launch_counts()
+    t0 = time.perf_counter()
+    ranks = cli.main(['-m', str(run)] + argv)
+    main_s = time.perf_counter() - t0
+    if launch_counts() != before:
+        raise AssertionError('[24] the launcher ran kernels itself')
+    check_run_dir('[24]', run, ranks, MESH_STEPS, 8)
+    scalars = read_scalars(run / 'log')
+    losses = scalars.get('General/Train loss', [])
+    val_losses = scalars.get('General/Validation loss', [])
+    # validation at the start, every `every` steps and at the end
+    if (len(losses) != MESH_STEPS
+            or len(val_losses) != MESH_STEPS // every + 2
+            or not np.isfinite(losses + val_losses).all()
+            or 'Monitoring/GPU0/memory peak (GB)' not in scalars):
+        raise AssertionError(f'[24] losses {losses}, validation '
+                             f'{val_losses}, tags {sorted(scalars)}')
+    launches['mesh_main'] = check_rank_launches('[24]', ranks, MESH_STEPS)
+    print(f'[24] train.main() --mesh data:2 on {[r["device"] for r in ranks]}'
+          f', {MESH_STEPS} production-recipe steps over phase 14\'s shards, '
+          f'global batch 8: losses ' + ' '.join(f'{v:.5f}' for v in losses)
+          + '; sharded validation ' + ' '.join(f'{v:.5f}' for v in val_losses)
+          + f' (the sharded skip rule prints its skips above); '
+          f'{main_s:.2f} s in all ({main_s / MESH_STEPS * 1e3:.1f} ms a step '
+          'with the start of two processes, checkpoints and validation); '
+          f'rank 0 alone wrote; card: {card}')
+    print(f'  launches: {launches["mesh_main"]}')
+    numbers['mesh_main_s'] = main_s
+    resume_against('[24]', out, run, argv, MESH_STEPS, every)
+
+    # the event axis over the raw split: event rank 0 reads, both cut
+    run = out / 'run_mesh_event'
+    argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
+            '-ne', str(every), '--checkpointing_interval', str(every),
+            '--permanent_interval', str(every), '-vp', str(every),
+            '--event-capacity', str(2 ** 18), '--mesh', 'data:1,event:2'
+            ] + RECIPE_FLAGS
+    t0 = time.perf_counter()
+    ranks = cli.main(argv)
+    main_s = time.perf_counter() - t0
+    check_run_dir('[24] event axis', run, ranks, every, 8)
+    launches['mesh_event_main'] = check_rank_launches('[24] event axis',
+                                                      ranks, every)
+    losses = read_scalars(run / 'log').get('General/Train loss', [])
+    if len(losses) != every or not np.isfinite(losses).all():
+        raise AssertionError(f'[24] event axis: losses {losses}')
+    print(f'[24] train.main() --mesh data:1,event:2 over the raw split, '
+          f'{every} steps, each rank voxelizing half of each batch\'s '
+          'events: losses ' + ' '.join(f'{v:.5f}' for v in losses)
+          + f'; {main_s:.2f} s in all; launches '
+          f'{launches["mesh_event_main"]}')
+    print(f'[24] {time.perf_counter() - t_phase:.2f} s')
+
+    # --- 25. two processes started with the multi-host flags -------------
+    t_phase = time.perf_counter()
+    run = out / 'run_hosts'
+    address = f'127.0.0.1:{free_port()}'
+    script = ('import json, sys\n'
+              'from dvs_of_training_framework_tpu_torch import train\n'
+              'print("RESULT", json.dumps(train.main(sys.argv[1:])))\n')
+    argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
+            '-ne', str(HOSTS_STEPS), '--preprocessed-dataset-path',
+            str(shards), '--checkpointing_interval', str(every),
+            '--permanent_interval', str(every), '-vp', str(every),
+            '--event-capacity', str(2 * capacity), '--timers', '--profiling',
+            'JAX', '--coordinator-address', address, '--num-processes',
+            '2'] + RECIPE_FLAGS
+    t0 = time.perf_counter()
+    outputs = run_ranks([[sys.executable, '-c', script] + argv
+                         + ['--process-id', str(i)] for i in range(2)],
+                        600, '[25]')
+    hosts_s = time.perf_counter() - t0
+    ranks = sorted((r for o in outputs for line in o.splitlines()
+                    if line.startswith('RESULT ')
+                    for r in json.loads(line[len('RESULT '):])),
+                   key=lambda r: r['rank'])
+    check_run_dir('[25]', run, ranks, HOSTS_STEPS, 8)
+    launches['hosts_main'] = check_rank_launches('[25]', ranks, HOSTS_STEPS)
+    lines = [line for line in outputs[0].splitlines()
+             if line.startswith('rank=0 time (ms)')]
+    if len(lines) != HOSTS_STEPS or any('time (ms)' in o
+                                        for o in outputs[1:]):
+        raise AssertionError(f'[25] timer lines {lines}')
+    regions = {}
+    for line in lines:
+        for name, ms in re.findall(r'\| ([a-z_]+): ([\d.]+)', line):
+            regions.setdefault(name, []).append(float(ms))
+    traces = list((run / 'profiling').glob('trace.*.json'))
+    text = traces[0].read_text() if len(traces) == 1 else ''
+    missing = [k for k in TRACE_KERNELS if k not in text]
+    scalars = read_scalars(run / 'log')
+    monitor = sorted(t for t in scalars if t.startswith('Monitoring/'))
+    if (len(traces) != 1 or traces[0].name != f'trace.{ranks[0]["pid"]}.json'
+            or missing or 'Monitoring/GPU0/memory used (GB)' not in monitor
+            or 'Monitoring/host/cpu percent' not in monitor):
+        raise AssertionError(f'[25] traces {traces}, kernels missing from '
+                             f'the trace {missing}, monitor tags {monitor}')
+    backend = [line for o in outputs for line in o.splitlines()
+               if line.startswith('torch.distributed:')]
+    print(f'[25] two processes started with --coordinator-address {address}'
+          f' --num-processes 2 --process-id 0/1 ({backend}), '
+          f'{HOSTS_STEPS} recipe steps over phase 14\'s shards (strided '
+          f'reads, ShardedBatchSkipper) with --timers --profiling JAX: '
+          f'{hosts_s:.2f} s in all; the timer regions, median ms of steps '
+          f'2-{HOSTS_STEPS}: ' + ', '.join(
+              f'{name} {statistics.median(v[1:]):.3f}'
+              for name, v in regions.items() if len(v) > 1)
+          + f'; rank 0\'s trace {traces[0].name} '
+          f'({traces[0].stat().st_size / 1e6:.1f} MB) holds '
+          f'{", ".join(TRACE_KERNELS)}; monitor tags {monitor}; card: {card}')
+    print(f'  launches: {launches["hosts_main"]}')
+    numbers['hosts_regions_ms'] = {name: statistics.median(v[1:])
+                                   for name, v in regions.items()
+                                   if len(v) > 1}
+    print(f'[25] {time.perf_counter() - t_phase:.2f} s')
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -1978,7 +2494,6 @@ def main():
     from dvs_of_training_framework_tpu_torch.data import pad_batch, synthetic
     from dvs_of_training_framework_tpu_torch.losses import (
         LOSS_PRECISIONS, MultiScaleLoss)
-    from dvs_of_training_framework_tpu_torch.models import Model
     from dvs_of_training_framework_tpu_torch.ops import (
         _build, kernel_mlp_cuda, voxel_cuda, warp, warp_cuda)
     from dvs_of_training_framework_tpu_torch.ops.resize import \
@@ -2033,10 +2548,7 @@ def main():
           f'{n_events} events in the first')
 
     def make_model(config, plain_ops=False, seed=0):
-        return Model(event_representation_depth=9, base_channels=64,
-                     plain_ops=plain_ops, dtype=CONFIGS[config][0],
-                     generator=torch.Generator().manual_seed(seed),
-                     device=device)
+        return bench_model(config, device, plain_ops, seed)
 
     model = make_model('golden')
     kernels = []
@@ -2419,14 +2931,22 @@ def main():
             if entry['name'] in ('voxelize_fwd', 'voxelize_bwd'):
                 entry['planes_16'] = planes_16[entry['name'][-3:]]
 
+        # --- 23. to 25. several ranks: the bare sharded step, main()'s
+        # spawned mesh and the multi-host flags ---------------------------
+        paths, mesh = mesh_phases(Path(out), collated, capacity, device,
+                                  card)
+        launches.update(paths)
+
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
-    # dense main() and its bare step, and the host-image run()s
+    # dense main() and its bare step, the host-image run()s, and the ranks'
+    # sharded steps, the spawned meshes' main() and the multi-host main()
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
-             'dummy_dense')
+             'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
+             'hosts_main')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -2440,6 +2960,7 @@ def main():
         raise AssertionError(f'the port loaded JAX-side modules: {jax_side}')
 
     print(json.dumps({'bake': bake}))
+    print(json.dumps({'mesh': mesh}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

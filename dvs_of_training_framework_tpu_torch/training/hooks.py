@@ -37,7 +37,8 @@ class ValidationHook:
     validation loader serves raw events (``data/dataloader.py``)."""
 
     def __init__(self, eval_step, loader_factory, logger, tags, device,
-                 event_capacity=2 ** 18, sequence_length=None):
+                 event_capacity=2 ** 18, sequence_length=None,
+                 prepare_batch=None):
         """
         Args:
             eval_step: ``batch -> (loss, terms)`` (``state.make_eval_step``).
@@ -48,7 +49,11 @@ class ValidationHook:
             device: the torch device of the model.
             sequence_length: per-sample slot count for dynamic sample
                 lengths, None for static lengths.
+            prepare_batch: optional mesh-side batch preparation for a
+                SHARDED eval_step (``parallel.make_sharded_eval_step``):
+                validation then runs on every rank, each on its shard.
         """
+        self.prepare_batch = prepare_batch
         self.eval_step = eval_step
         self.loader_factory = loader_factory
         self.logger = logger
@@ -60,4 +65,5 @@ class ValidationHook:
     def __call__(self, steps: int, samples: int):
         validate(self.eval_step, self.loader_factory(), samples, self.logger,
                  self.tags, self.device, event_capacity=self.event_capacity,
-                 sequence_length=self.sequence_length)
+                 sequence_length=self.sequence_length,
+                 prepare_batch=self.prepare_batch)

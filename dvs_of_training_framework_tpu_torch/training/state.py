@@ -62,12 +62,26 @@ def make_train_step(model, evaluator, optimizer, weights,
     """
     loss_fn = make_loss_fn(model, evaluator, weights, is_raw)
     named = dict(model.named_parameters())
+
+    def grad_fn(batch):
+        loss, terms = loss_fn(batch)
+        grads = torch.autograd.grad(loss, list(named.values()),
+                                    materialize_grads=True)
+        return loss, terms, dict(zip(named, grads))
+
+    return make_update_step(grad_fn, named, optimizer, accumulation_steps)
+
+
+def make_update_step(grad_fn, named, optimizer, accumulation_steps: int):
+    """The step around ``grad_fn(batch) -> (loss, terms, {name: grad})``:
+    every call accumulates, and every ``accumulation_steps``-th applies
+    the mean of the microbatch gradients (``make_train_step``; the
+    sharded steps of ``parallel/mesh.py`` give it their reduced
+    gradients)."""
     inv = 1.0 / accumulation_steps
 
     def step_fn(state, batch):
-        loss, terms = loss_fn(batch)
-        grads = dict(zip(named, torch.autograd.grad(
-            loss, list(named.values()), materialize_grads=True)))
+        loss, terms, grads = grad_fn(batch)
         if accumulation_steps == 1:
             optimizer.step(grads)
             state.step += 1

@@ -7,7 +7,9 @@ raw batches are skipped and counted (a dense batch has no events and is
 never skipped), per-scale losses are logged against
 samples passed, periodic hooks run at optimizer-step boundaries, and a
 validation pass logs the mean loss terms.  The TensorBoard tags and
-values are the JAX loop's.
+values are the JAX loop's.  A rank of a multi-process run hands both a
+``prepare_batch`` that cuts its piece out of each host batch
+(``parallel/mesh.py``), and counts samples globally (``samples_scale``).
 
 The step is host-bound, so the loop never waits on the card for a
 metric: losses stay on the device and are fetched with one stacked
@@ -18,26 +20,8 @@ import torch
 
 from ..data.prefetch import prefetch_to_device
 from ..data.schema import pad_batch
-
-
-class _NullTimer:
-    def start(self):
-        pass
-
-    def stop(self):
-        pass
-
-
-class NullTimers:
-    """The JAX package's timer interface (``timers(name).start()``,
-    ``.stop()``, ``timers.log(names)``), doing nothing."""
-
-    def __call__(self, name):
-        return _NullTimer()
-
-    def log(self, names, normalizer=1.0, reset=True,
-            memory_breakdown=False):
-        pass
+from ..utils.timer import (FakeTimer, SynchronizedWallClockTimer,
+                           ThroughputTimer)
 
 
 def make_hook_periodic(hook, interval):
@@ -100,7 +84,9 @@ def train(train_step,
           on_state_update=None,
           metric_flush_steps: int = 16,
           sequence_length=None,
-          is_raw=True):
+          is_raw=True,
+          prepare_batch=None,
+          samples_scale: int = 1):
     """Run the training loop.
 
     Args:
@@ -116,7 +102,9 @@ def train(train_step,
         event_capacity: fixed event-buffer size; with
             ``max_events_per_batch`` it bounds the batches taken, larger
             ones are skipped (the reference's oversized-batch breaker).
-        timers: the JAX package's timer interface; ``NullTimers`` if None.
+        timers: ``utils/timer.py``'s interface; ``FakeTimer`` if None.
+            A ``SynchronizedWallClockTimer`` also reports samples/s
+            (``ThroughputTimer``).
         hooks: dict of periodic hooks called with (step, samples_passed).
         on_state_update: optional callback receiving the latest state.
         metric_flush_steps: optimizer steps between metric fetches.
@@ -124,12 +112,22 @@ def train(train_step,
             lengths (``pad_batch``), None for static lengths.
         is_raw: the loader gives raw event batches; False for dense ones
             (``--ev_images``), which take no event capacity.
+        prepare_batch: ``(collated, capacity) -> host Batch`` in place of
+            the padding (a rank's piece of the batch; an ``OverflowError``
+            skips the batch).
+        samples_scale: multiplier of every host batch's ``size`` in
+            samples_passed: a rank reads ``1/samples_scale`` of each
+            global batch, and samples_passed (LR schedule, metrics x-axis,
+            resume position) counts GLOBAL samples.
 
     Returns:
         (state, samples_passed)
     """
     if timers is None:
-        timers = NullTimers()
+        timers = FakeTimer()
+    throughput = None
+    if isinstance(timers, SynchronizedWallClockTimer):
+        throughput = ThroughputTimer(batch_size=None, device=device)
     samples_passed = init_samples_passed
     pending_micro = []       # device (loss, terms) since the last boundary
     pending_boundaries = []  # (step, samples_passed, micro records)
@@ -142,6 +140,8 @@ def train(train_step,
         num_events = batch_num_events(host_batch, is_raw)
         if num_events > capacity:
             raise OverflowError(f'{num_events} events > capacity {capacity}')
+        if prepare_batch is not None:
+            return prepare_batch(host_batch, capacity)
         return pad_batch(host_batch, capacity if is_raw else None,
                          sequence_length=sequence_length)
 
@@ -192,10 +192,15 @@ def train(train_step,
     def run_step(host_batch, device_batch):
         nonlocal state, global_step, samples_passed, pending_micro
         global_step += 1
-        samples_passed += host_batch['size']
+        samples_passed += host_batch['size'] * samples_scale
+        if throughput is not None:
+            throughput.batch_size = host_batch['size']
+            throughput.start()
         timers('train_step').start()
         state, (loss, terms) = train_step(state, device_batch)
         timers('train_step').stop()
+        if throughput is not None:
+            throughput.stop()
 
         is_step_boundary = global_step % accumulation_steps == 0
 
@@ -220,8 +225,9 @@ def train(train_step,
                 hook(step, samples_passed)
                 timers(k).stop()
 
-        timers.log(names=['batch_construction', 'train_step', 'logging']
-                   + list(hooks))
+        # 'all_reduce': the sharded steps' collectives, inside train_step
+        timers.log(names=['batch_construction', 'train_step', 'logging',
+                          'all_reduce'] + list(hooks))
 
     stream = prefetch_to_device(iter(loader), make_batch, device)
     timers('batch_construction').start()
@@ -256,21 +262,40 @@ def _emit_validation(logger, tags, samples_passed, n, loss_sum, smooth_sum,
 
 
 def validate(eval_step, loader, samples_passed, logger, tags, device,
-             event_capacity=2 ** 18, sequence_length=None):
+             event_capacity=2 ** 18, sequence_length=None,
+             prepare_batch=None):
     """Validation pass (reference utils/training.py:244-271): the mean
     loss terms over the batches that fit ``event_capacity``, fetched from
-    the device once at the end; ``sequence_length`` as in ``train``."""
+    the device once at the end; ``sequence_length`` as in ``train``.
+
+    ``prepare_batch(collated, capacity) -> host Batch`` overrides the
+    padding: a mesh run passes its split, so that validation runs sharded
+    (``parallel.make_sharded_eval_step``).  A batch it refuses, one whose
+    size the shards do not divide (``ValueError``) or with a shard over
+    capacity (``OverflowError``), is dropped and counted.
+    """
     n = 0
+    n_dropped = 0
     photo_sum, smooth_sum, out_reg_sum = [], [], []
     loss_sum = 0.0
     pending = []
     for batch in loader:
         if batch_num_events(batch) > event_capacity:
             continue
-        pending.append(eval_step(
-            pad_batch(batch, event_capacity,
-                      sequence_length=sequence_length).to(device)))
+        if prepare_batch is not None:
+            try:
+                host_batch = prepare_batch(batch, event_capacity)
+            except (ValueError, OverflowError):
+                n_dropped += 1
+                continue
+        else:
+            host_batch = pad_batch(batch, event_capacity,
+                                   sequence_length=sequence_length)
+        pending.append(eval_step(host_batch.to(device)))
         n += 1
+    if n_dropped:
+        print(f'validate: dropped {n_dropped} batches the mesh split '
+              'refused (indivisible remainder or a shard over capacity)')
     for loss, (smoothness, photometric, out_reg) in _fetch(pending):
         photo_sum = add_loss(photo_sum, photometric)
         smooth_sum = add_loss(smooth_sum, smoothness)

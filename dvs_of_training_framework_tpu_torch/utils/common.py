@@ -72,8 +72,11 @@ PROVENANCE_FILENAME = 'parameters'
 
 # Arguments that may differ between a run and its resume without
 # invalidating the output directory.
+# launch details that differ between the ranks of one run, or between a
+# run and its resume, are not arguments of the training
 _VOLATILE_ARGS = {'allow_arguments_change', 'allow_obsolete_code',
-                  'cache-dir', 'cache_dir'}
+                  'cache-dir', 'cache_dir', 'coordinator_address',
+                  'process_id'}
 
 
 def _yaml_friendly(value):

@@ -50,8 +50,10 @@ _MODEL = [
           help='samples per optimizer step')),
     (('--profiling',),
      dict(choices=['JAX', 'CPU', 'NVTX', 'None'], default='None',
-          help='profiler: JAX = Perfetto/XPlane trace; CPU/NVTX accepted '
-               'as aliases for command-line compatibility')),
+          help='profiler of the training loop: JAX = a torch.profiler '
+               'trace of the host and the card (Chrome trace JSON in '
+               '<model>/profiling), CPU = the same of the host alone, '
+               'NVTX = NVTX ranges for an external profiler')),
     (('-sp', '--starting_point'),
      dict(dest='sp', default=None,
           help='initial weights for the network')),
@@ -132,8 +134,9 @@ _TPU = [
                'ACCURACY.md)')),
     (('--mesh',),
      dict(default=None, type=str,
-          help='device mesh "name:size[,name:size]", e.g. "data:8"; '
-               'default: single device')),
+          help='device mesh "data:D[,event:E]": D x E processes, one '
+               'device each (spawned here unless the multi-host flags '
+               'start them); default: single device')),
     (('--device-queue-window',),
      dict(dest='device_queue_window', default=16, type=int,
           help='batches staged on device per upload (0 disables the '
@@ -177,7 +180,7 @@ _TPU = [
                'before the first conv anyway; f32 otherwise)')),
     (('--coordinator-address',),
      dict(dest='coordinator_address', default=None, type=str,
-          help='multi-host: jax.distributed coordinator "host:port"')),
+          help='multi-host: the rendezvous "host:port" of rank 0')),
     (('--num-processes',),
      dict(dest='num_processes', default=None, type=int,
           help='multi-host: total number of processes')),

@@ -4,10 +4,11 @@
 Mirrors the JAX package's tests/training/test_cli.py (end to end, resume,
 the guard against changed arguments) with the same fixture layout, on the
 CPU, with the port's EVFlowNet at 64x64, batch 2, two steps; and adds
-``--ema-decay`` with ``finalize``, one refused flag for each ROADMAP item
-not ported yet, the flags of the ported items 10-12 accepted, the
-refusal of ``-d cuda`` without a card, and one ignored TPU-only flag
-that logs its line.
+``--ema-decay`` with ``finalize``, the flags of the ported items 10-14
+accepted (sequences, plugins, dense mode, the timers, the profiler, a
+mesh and the multi-host flags), the refusal of a mesh the batch or the
+dense mode cannot take, the refusal of ``-d cuda`` without a card, and
+one ignored TPU-only flag that logs its line.
 """
 import os
 from pathlib import Path
@@ -122,17 +123,6 @@ def test_train_cli_ema_finalize(tmp_path, mvsec_layout):
     model.load_state_dict(ema, strict=True)
 
 
-@pytest.mark.parametrize('flags, item', [
-    (['--timers'], 13),
-    (['--profiling', 'JAX'], 13),
-    (['--mesh', 'data:2'], 14),
-    (['--num-processes', '2'], 14),
-])
-def test_train_cli_refuses_unported_flags(tmp_path, flags, item):
-    with pytest.raises(ValueError, match=f'ROADMAP queue 1 item {item}'):
-        cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
-
-
 @pytest.mark.parametrize('flags', [
     ['--flownet_path', str(REPO / 'DummyFlowNet')],
     ['--flownet_path', 'RecurrentFlowNet', '--max-sequence-length', '2'],
@@ -141,6 +131,10 @@ def test_train_cli_refuses_unported_flags(tmp_path, flags, item):
     ['--max-sequence-length', '2', '--dynamic-sample-length'],
     ['--mish'],
     ['--ev_images'],
+    ['--timers'],
+    ['--profiling', 'JAX'],
+    ['--mesh', 'data:2'],
+    ['--num-processes', '2'],
 ])
 def test_train_cli_accepts_ported_flags(tmp_path, flags):
     args = cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
@@ -150,6 +144,23 @@ def test_train_cli_accepts_ported_flags(tmp_path, flags):
         args.max_sequence_length if args.dynamic_sample_length else None)
     assert args.is_raw == ('--ev_images' not in flags)
     assert (cli.make_event_image_fn(args) is None) == args.is_raw
+    mesh = cli.mesh_of(args)
+    if '--mesh' in flags or '--num-processes' in flags:
+        # two data shards of one rank each: by --mesh, or by default
+        # over the multi-host flags' processes
+        assert (mesh.data, mesh.event, mesh.size) == (2, 1, 2)
+    else:
+        assert mesh is None
+
+
+@pytest.mark.parametrize('flags, match', [
+    (['--mesh', 'data:3'], 'not divisible'),
+    (['--mesh', 'foo:2'], 'axis "foo"'),
+    (['--mesh', 'data:1,event:2', '--ev_images'], 'requires raw events'),
+])
+def test_train_cli_refuses_a_mesh_it_cannot_shard(tmp_path, flags, match):
+    with pytest.raises(ValueError, match=match):
+        cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
 
 
 def test_train_cli_refuses_cuda_without_a_card(tmp_path, monkeypatch):

@@ -7,9 +7,10 @@ machine lacks them), and fail if any module of the JAX package
 plugin packages (``EVFlowNet``, ``RecurrentFlowNet``, ``DummyFlowNet``,
 which import flax) was loaded:
 
-- importing every module of the port and running one CPU training step of
-  the golden configuration and one of the bf16 recipe, then one of
-  RecurrentFlowNet on 2-element samples;
+- importing every module of the port (``parallel/`` and the timers,
+  profiler, monitor, logger and iterable timing of ``utils/`` among them)
+  and running one CPU training step of the golden configuration and one
+  of the bf16 recipe, then one of RecurrentFlowNet on 2-element samples;
 - the training CLI's ``run`` training 2 steps on the CPU from an in-memory
   loader, checkpointing, and a second ``run`` resuming and taking a third;
 - the whole data path and both CLIs' ``main``: the port's tools build a
@@ -22,6 +23,10 @@ which import flax) was loaded:
   ``main`` trains a step on them with ``--ev_images``; then
   ``main`` trains RecurrentFlowNet (``--flownet_path RecurrentFlowNet``)
   a step on the raw split's 2-element samples.
+- ``train.main(['--mesh', 'data:2', ...])`` spawning two gloo workers
+  that train a step and validate sharded; the script is a file, so the
+  spawned workers run its top level, install the same block and report
+  what they loaded when they exit.
 - CPU tensors go to the plain twins and leave the launch counters alone.
 - On a CUDA card (tests marked ``cuda``; they skip without one) each
   kernel agrees with its twin: K1 forward 1e-5 and backward 1e-6, with
@@ -69,8 +74,13 @@ STEP = BLOCK + r'''
 import importlib, pkgutil, types
 import numpy as np, torch
 import dvs_of_training_framework_tpu_torch as port
+walked = set()
 for info in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):
     importlib.import_module(info.name)
+    walked.add(info.name[len(port.__name__) + 1:])
+assert {'parallel.mesh', 'parallel.distributed', 'utils.timer',
+        'utils.monitor', 'utils.profiling', 'utils.performance',
+        'utils.logging'} <= walked, walked
 from dvs_of_training_framework_tpu_torch.data import pad_batch
 from dvs_of_training_framework_tpu_torch.losses import MultiScaleLoss
 from dvs_of_training_framework_tpu_torch.models import Model
@@ -252,6 +262,31 @@ print('LOADED', loaded())
 '''
 
 
+MESH = BLOCK + r'''
+import atexit
+if __name__ == '__mp_main__':          # a spawned worker of the mesh
+    atexit.register(lambda: print('LOADED', loaded(), flush=True))
+if __name__ == '__main__':
+    import os, sys, tempfile
+    from pathlib import Path
+    from dvs_of_training_framework_tpu_torch import train
+    with tempfile.TemporaryDirectory() as tmp:
+        mvsec = Path(tmp) / 'mvsec'
+        mvsec.mkdir()
+        for split in ('outdoor_day1', 'outdoor_day2'):
+            (mvsec / split).symlink_to(sys.argv[1])
+        os.environ['DVS_DATA_PATH'] = str(mvsec)
+        ranks = train.main(['-m', str(Path(tmp) / 'run'), '-d', 'cpu',
+                            '-bs', '2', '-mbs', '2', '-ne', '1',
+                            '--height', '32', '--width', '32',
+                            '--num_workers', '0', '--event-capacity',
+                            '16384', '-vp', '1', '--mesh', 'data:2'])
+        assert [(r['rank'], r['step'], r['samples_passed'])
+                for r in ranks] == [(0, 1, 2), (1, 1, 2)], ranks
+    print('LOADED', loaded())
+'''
+
+
 def test_port_runs_a_step_without_jax():
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, '-c', STEP], cwd=REPO, env=env,
@@ -274,6 +309,36 @@ def test_main_builds_trains_resumes_and_evaluates_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert 'LOADED []' in proc.stdout, proc.stdout
+
+
+def test_mesh_ranks_train_without_jax(tmp_path):
+    from dvs_of_training_framework_tpu_torch.data import store
+    from tests.torch_procs import env, python, run_group
+    # ten contiguous 50 ms elements of random events and frames, laid out
+    # as tests/data/seq's, in the npy store: the script has no h5py
+    rng = np.random.default_rng(5)
+    split = tmp_path / 'seq'
+    split.mkdir()
+    for i in range(10):
+        start, stop = 10 + 0.05 * i, 10 + 0.05 * (i + 1)
+        n = 400
+        events = np.stack([rng.integers(0, 346, n), rng.integers(0, 260, n),
+                           np.sort(rng.uniform(start, stop, n)),
+                           rng.choice([-1.0, 1.0], n)], axis=1)
+        with store.open_file(split / f'{i:06d}.hdf5', 'w') as out:
+            out.create_dataset('events', data=events)
+            for name in ('image1', 'image2'):
+                out.create_dataset(name, data=rng.integers(
+                    0, 256, (260, 346)).astype(np.uint8))
+            out.create_dataset('start', data=np.float64(start))
+            out.create_dataset('stop', data=np.float64(stop))
+    script = tmp_path / 'mesh_main.py'
+    script.write_text(MESH)
+    (out,) = run_group([python(script, split)], tmp_path / 'logs',
+                       timeout=240, environ=env())
+    # the parent and both spawned workers, each after its imports
+    assert out.count('LOADED []') == 3, out
+    assert 'LOADED [' not in out.replace('LOADED []', ''), out
 
 
 def test_cpu_tensors_take_the_twins():
