@@ -158,7 +158,28 @@ Phases:
     shards (strided reads, the sharded skip rule), 8 recipe steps with
     ``--timers --profiling JAX``: rank 0 alone prints the timer lines
     (their medians printed), its trace names the kernels, and its
-    TensorBoard log holds the device monitor's scalars.
+    TensorBoard log holds the device monitor's scalars;
+26. the visualize CLI's ``main()`` with ``--precision bfloat16``,
+    EVFlowNet at full width with phase 14's step-12 checkpoint over its
+    validation split (a panel a batch of one sample, the CLI's default
+    writer count): K1 and K2 forward launch once a panel and nothing
+    else; seconds a panel and its split between the reader, the device,
+    rendering and the writers; every PNG read back with the port's
+    reader, the first two equal bit for bit to their rendering on the
+    host from the card's flows; a second ``main()`` skips every panel
+    and launches nothing; two batches through ``visualize_batch`` in
+    fp32 on the card and on the CPU, every flow and loss term within
+    rtol 1e-4 (phase 15's rule); the device time of one forward and loss
+    at batch 1 in fp32 and bf16; then RecurrentFlowNet on 2-element
+    samples at prefix 1 with phase 18's checkpoint, 2 panels;
+27. the host tools on the card's machine: the zero-flow and
+    constant-flow-oracle baselines over phase 14's test split, the AEE
+    table of phase 15's live and EMA pickles (an EMA row of its own),
+    ``fix_events`` over phase 18's resumed run (its two event files
+    merged: steps strictly increasing per tag afterwards, the resume's
+    values kept), ``profile_dataset`` over phase 14's shards (µs an
+    iteration) and ``make_info`` over phase 14's raw sequences (equal,
+    through ``read_info``, to the simulator's info file).
 
 Every phase from 17 on prints its own seconds.  A phase that starts
 processes puts a time limit on them, and a rank that fails stops the
@@ -2486,6 +2507,385 @@ def mesh_phases(out, collated, capacity, device, card):
     return launches, numbers
 
 
+
+def merged_log(run, out_dir):
+    """One event file of ``run``'s logs (the run's own, then the resume's,
+    by name: the time each writer opened), as a log that appends across
+    restarts holds them; returns its path and the resume's file."""
+    from dvs_of_training_framework_tpu_torch.utils.tb import (read_records,
+                                                             write_records)
+    files = sorted(f for f in (run / 'log').glob('events.out.tfevents.*')
+                   if f.suffix != '.monitor')   # the device monitor's own
+    if len(files) != 2:
+        raise AssertionError(f'[27] {run.name}: event files {files}')
+    out_dir.mkdir()
+    merged = out_dir / 'events.out.tfevents.0.merged'
+    write_records(merged, [r for f in files for r in read_records(f)])
+    return merged, files[1]
+
+
+def border_slack(flows):
+    """Per flow scale of one sample, (k, bound): the border term is the
+    mean, over the pixels whose warp target ``(x + u) / ((W - 1) / 2) - 1``
+    leaves [-1, 1] in x or y, of half their (x, y) Charbonnier pair.  The
+    card divides by that scalar as a product with its reciprocal, one ulp
+    from the CPU's quotient, so the k pixels within 8 ulps of the frame's
+    edge may count on one and not the other, while the c pixels outside
+    beyond doubt count on both.  Either mean then lies within k / (c + k)
+    of the range of the values over those c + k pixels from the mean over
+    the c alone: the two differ by at most that much."""
+    from dvs_of_training_framework_tpu_torch.ops.charbonnier import \
+        charbonnier_value
+    out = []
+    for flow in flows:
+        flow = torch.from_numpy(flow[0])                  # [2, h, w]
+        h, w = flow.shape[1:]
+        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32),
+                                torch.arange(w, dtype=torch.float32),
+                                indexing='ij')
+        grid = torch.stack([(xs + flow[0]) / ((w - 1) / 2.0) - 1.0,
+                            (ys + flow[1]) / ((h - 1) / 2.0) - 1.0])
+        near = ((grid.abs() - 1).abs() <= 8 * 2.0 ** -23).any(dim=0)
+        sure = ((grid < -1) | (grid > 1)).any(dim=0) & ~near
+        value = charbonnier_value(flow, 0.45, 1e-3).sum(dim=0) / 2
+        k, c = int(near.sum()), int(sure.sum())
+        both = value[near | sure]
+        out.append((k, k / (c + k) * float(both.max() - both.min())
+                    if k else 0.0))
+    return out
+
+
+def run_tool(label, fn, *args):
+    """``fn(*args)`` with its standard output captured; prints and returns
+    its lines and its seconds."""
+    import contextlib
+    import io
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        value = fn(*args)
+    seconds = time.perf_counter() - t0
+    lines = text.getvalue().splitlines()
+    print(f'[27] {label} ({seconds:.2f} s):')
+    for line in lines:
+        print(f'    {line}')
+    return lines, seconds, value
+
+
+def visualize_phases(out, capacity, device, card, counters):
+    """Phases 26 and 27 over the sets, runs and evaluations of phases 14,
+    15 and 18 in ``out``; returns the launch counts of the two visualize
+    runs and the numbers of the visualize JSON line."""
+    from dvs_of_training_framework_tpu_torch import visualize as vis_cli
+    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.data.dataloader import (
+        get_dataloader, get_valset_params)
+    from dvs_of_training_framework_tpu_torch.data.dataset import read_info
+    from dvs_of_training_framework_tpu_torch.losses import (MultiScaleLoss,
+                                                            combined_loss)
+    from dvs_of_training_framework_tpu_torch.models import (init_model,
+                                                            load_vis_flow)
+    from dvs_of_training_framework_tpu_torch.tools import (
+        aee_table, fix_events, make_info, oracle_flow_baseline,
+        profile_dataset, zero_flow_baseline)
+    from dvs_of_training_framework_tpu_torch.train import flow_shapes
+    from dvs_of_training_framework_tpu_torch.utils.tb import read_events
+    from dvs_of_training_framework_tpu_torch.utils.visualization import \
+        read_png
+    launches, numbers = {}, {}
+    only_forward = ('voxelize_fwd', 'kernel_mlp_fwd')
+
+    def forward_counts(label, counts, n):
+        if any(counts[k] != (n if k in only_forward else 0) for k in counts):
+            raise AssertionError(f'{label}: launches {counts}, expected '
+                                 f'{n} of K1 and K2 forward and no other')
+
+    # --- 26. the visualize CLI: EVFlowNet at full width, then sequences ----
+    t_phase = time.perf_counter()
+    checkpoint = out / 'run' / f'step_{MAIN_STEPS}.ckpt'
+    # the CLI writes under <repo>/visualization/<name of -m>/<stem of -sp>
+    name = f'chip_smoke_{os.getpid()}'
+    output = REPO / 'visualization' / name / checkpoint.stem
+    argv = ['-m', str(out / name), '-sp', str(checkpoint), '-d',
+            device.type, '--event-capacity', str(capacity)]
+    bf16 = ['--precision', 'bfloat16']
+    rendered = []
+    render = vis_cli.visualize
+
+    def recording(*a):          # what the CLI renders: batch, loss, parts,
+        rendered.append(a[1:4] + (a[5],))        # and the prediction
+        return render(*a)
+
+    try:
+        vis_cli.visualize = recording
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            record = vis_cli.main(argv + bf16)
+        finally:
+            vis_cli.visualize = render
+        wall = time.perf_counter() - t0
+        counts = read_counts(counters)
+        launches['visualize'] = counts
+        n = record['panels']
+        print(f'[26] visualize.main() --precision bfloat16, EVFlowNet (base '
+              f'64, depth 9, 256x256) with phase 14\'s step-{MAIN_STEPS} '
+              f'checkpoint over its validation split: {n} panels in '
+              f'{wall:.2f} s ({record["existing"]} done before, '
+              f'{record["oversized"]} over capacity {capacity}), '
+              f'{os.cpu_count()} writers')
+        print(f'  launches: {counts}')
+        if n < 8 or record['existing'] or record['oversized']:
+            raise AssertionError(f'[26] visualize: {record}')
+        forward_counts('[26] visualize', counts, n)
+        split = {k: v / n for k, v in record['seconds'].items()}
+        print(f'  seconds a panel: {wall / n:.4f} in all; the reader '
+              f'{split["read"]:.4f}, the device (upload, forward, loss, '
+              f'fetch) {split["device"]:.4f}, rendering '
+              f'{split["render"]:.4f}, the writers (handing over, and the '
+              f'wait for them at the end) {split["write"]:.4f}; card: {card}')
+
+        # every panel read back with the port's reader; the first two
+        # rendered again on the host from the card's flows and loss terms
+        vis_args = vis_cli.parse_args(argv + bf16)
+        vis_flow = load_vis_flow(vis_args.flownet_path)
+        # the banner, the two frames, the finest flow over the coarser ones
+        H, W = vis_args.shape
+        shape = (vis_cli.BANNER_ROWS + H + H + H // 2, 2 * W, 3)
+        for i in range(n):
+            png = read_png(output / f'{i:04d}.png')
+            stats = json.loads((output / f'{i:04d}.yml').read_text())
+            if png.shape != shape or not np.isfinite(
+                    [stats['loss']] + stats['photometric']).all():
+                raise AssertionError(f'[26] panel {i}: {png.shape}, {stats}')
+            if i < 2:
+                batch, loss, parts, prediction = rendered[i]
+                panel, again = vis_cli.visualize(
+                    vis_args, batch, loss, parts, vis_args.loss_weights,
+                    prediction, vis_flow)
+                if not (np.array_equal(panel[..., ::-1], png)
+                        and again == stats):
+                    raise AssertionError(f'[26] panel {i} differs from its '
+                                         'rendering on the host')
+        print(f'[26] the {n} PNGs read back with utils/visualization.'
+              f'read_png, {shape} each; the first two equal, bit for '
+              'bit, their rendering on the host from the card\'s flows and '
+              'loss terms')
+
+        # a second pass: every panel is done, nothing runs
+        reset(counters)
+        again = vis_cli.main(argv + bf16, num_writers=1)
+        counts = read_counts(counters)
+        if again['panels'] or again['existing'] != n or any(
+                counts.values()):
+            raise AssertionError(f'[26] second pass: {again}, {counts}')
+        print(f'[26] a second visualize.main() skips all {n} panels, no '
+              'kernel launched')
+    finally:
+        shutil.rmtree(REPO / 'visualization' / name, ignore_errors=True)
+
+    # the card against the CPU on the first two batches, fp32 (TF32 off):
+    # every flow as phase 15 holds the evaluation CLI's (rtol 1e-4), and
+    # the loss, smoothness and photometric terms, which follow the flows,
+    # at the same rtol; then every term recomputed on the CPU from the
+    # card's flows, at tests/test_torch_loss.py's loss rtol 1e-5, the
+    # border term besides within what its edge values explain
+    # (``border_slack``)
+    args = vis_cli.parse_args(argv)
+    args.mbs = 1
+    batches = iter(get_dataloader(get_valset_params(args)))
+    try:
+        host = [next(batches) for _ in range(2)]
+    finally:
+        batches.close()
+    evaluator = MultiScaleLoss(flow_shapes(args.shape))
+    held = []
+    for dev in (device, torch.device('cpu')):
+        model = init_model(args, dev)
+        held.append([vis_cli.visualize_batch(args, model, evaluator, b, dev,
+                                             vis_flow) for b in host])
+    print('[26] two batches through visualize_batch, fp32, card against '
+          'CPU, the same weights:')
+    gap = 0.0
+    terms = ('smoothness', 'photometric', 'border')
+    for j, ((_, s_card, p_card), (_, s_cpu, p_cpu)) in enumerate(
+            zip(*held)):
+        for key in ('loss',) + terms[:2]:
+            check_close(f'batch {j} {key}', torch.tensor(s_card[key]),
+                        torch.tensor(s_cpu[key]), 1e-4, 0.0)
+        for g, w, bf in zip(p_card['prediction'], p_cpu['prediction'],
+                            rendered[j][3]['prediction']):
+            scale = float(np.abs(w).max())
+            check_close(f'batch {j} {g.shape[2]}x{g.shape[3]} flow',
+                        torch.from_numpy(g), torch.from_numpy(w), 1e-4,
+                        1e-4 * scale)
+            gap = max(gap, float(np.abs(bf - w).max()) / scale)
+        cpu_batch = pad_batch(host[j], args.event_capacity).to('cpu')
+        loss, again = combined_loss(
+            evaluator, [torch.from_numpy(f) for f in p_card['prediction']],
+            torch.from_numpy(p_card['flow_ts']),
+            torch.from_numpy(p_card['flow_sample_idx']), cpu_batch.images,
+            cpu_batch.timestamps, cpu_batch.sample_idx,
+            weights=tuple(args.loss_weights))
+        check_close(f'batch {j} loss from the card\'s flows on the CPU',
+                    torch.tensor(s_card['loss']), loss, 1e-5, 0.0)
+        for key, values in zip(terms[:2], again):
+            check_close(f'batch {j} {key} from the card\'s flows on the CPU',
+                        torch.tensor(s_card[key]), torch.stack(values),
+                        1e-5, 0.0)
+        slack = border_slack(p_card['prediction'])
+        got, want = np.array(s_card['border']), torch.stack(
+            again[2]).numpy()
+        print(f'  batch {j} border from the card\'s flows on the CPU: '
+              f'{got} against {want}; values within 8 ulps of the frame\'s '
+              f'edge a scale {[k for k, _ in slack]}, slack '
+              f'{[f"{b:.2e}" for _, b in slack]}')
+        if (np.abs(got - want) > 1e-5 * np.abs(want)
+                + np.array([b for _, b in slack])).any():
+            raise AssertionError(f'[26] batch {j}: border terms differ by '
+                                 'more than their edge pixels explain')
+    print(f'  the bf16 run\'s flows against the fp32 CPU flows: largest '
+          f'difference {gap:.3e} of the flow\'s largest value (not bounded)')
+
+    # the device time of one forward and loss at batch 1, each precision,
+    # and the host's time of visualize_batch's two parts on a warm card
+    batch = pad_batch(host[0], capacity).to(device)
+    for label, extra in (('fp32', []), ('bf16', bf16)):
+        timed_args = vis_cli.parse_args(argv + extra)
+        model = init_model(timed_args, device)
+        warm = {'device': 0.0, 'render': 0.0}
+        vis_cli.visualize_batch(timed_args, model, evaluator, host[0],
+                                device, vis_flow)
+        for b in host * 4:
+            vis_cli.visualize_batch(timed_args, model, evaluator, b, device,
+                                    vis_flow, warm)
+        numbers[f'warm_{label}_ms'] = {k: v / 8 * 1e3
+                                       for k, v in warm.items()}
+
+        def forward_and_loss():
+            with torch.inference_mode():
+                flows, flow_ts, flow_idx, _ = model(
+                    batch.events, batch.timestamps, batch.sample_idx,
+                    tuple(batch.images.shape[-2:]), intermediate=True)
+                return combined_loss(evaluator, flows, flow_ts, flow_idx,
+                                     batch.images, batch.timestamps,
+                                     batch.sample_idx)
+
+        numbers[f'forward_loss_{label}_ms'] = device_ms(forward_and_loss)
+    print(f'[26] one forward (intermediate features) and loss at batch 1, '
+          f'device time: fp32 {numbers["forward_loss_fp32_ms"]:.3f} ms, '
+          f'bf16 {numbers["forward_loss_bf16_ms"]:.3f} ms; visualize_batch '
+          'on a warm card, host ms a batch (mean of 8): ' + '; '.join(
+              f'{label} device {numbers[f"warm_{label}_ms"]["device"]:.3f},'
+              f' rendering {numbers[f"warm_{label}_ms"]["render"]:.3f}'
+              for label in ('fp32', 'bf16')) + f'; card: {card}')
+    numbers.update(panels=n, seconds_a_panel=wall / n,
+                   split_a_panel=split, writers=os.cpu_count())
+    del model, batch, held
+    torch.cuda.empty_cache()
+
+    # RecurrentFlowNet on 2-element samples at prefix 1: three elements of
+    # the validation split give two samples
+    pairs = out / 'vis_pairs'
+    (pairs / 'outdoor_day1').mkdir(parents=True)
+    val = Path(os.environ['DVS_DATA_PATH']) / 'outdoor_day1'
+    for f in sorted(val.glob('*.hdf5'), key=lambda p: int(p.stem))[:3]:
+        (pairs / 'outdoor_day1' / f.name).symlink_to(f.resolve())
+    name = f'chip_smoke_pairs_{os.getpid()}'
+    recurrent = out / 'run_recurrent' / f'step_{MAIN_STEPS}.ckpt'
+    output = REPO / 'visualization' / name / recurrent.stem
+    data_path = os.environ['DVS_DATA_PATH']
+    os.environ['DVS_DATA_PATH'] = str(pairs)
+    reset(counters)
+    try:
+        record = vis_cli.main(
+            ['-m', str(out / name), '-sp', str(recurrent), '-d', device.type,
+             '--flownet_path', 'RecurrentFlowNet', '--min-sequence-length',
+             '2', '--max-sequence-length', '2', '--prefix-length', '1',
+             '--event-capacity', str(capacity)] + bf16, num_writers=2)
+        counts = read_counts(counters)
+        launches['recurrent_visualize'] = counts
+        shapes = [read_png(output / f'{i:04d}.png').shape for i in range(2)]
+    finally:
+        os.environ['DVS_DATA_PATH'] = data_path
+        shutil.rmtree(REPO / 'visualization' / name, ignore_errors=True)
+    print(f'[26] visualize.main() --flownet_path RecurrentFlowNet, 2-element '
+          f'samples at prefix 1, phase 18\'s step-{MAIN_STEPS} checkpoint: '
+          f'{record["panels"]} panels {shapes}; launches: {counts}')
+    if record['panels'] != 2 or shapes != [shape[:1] + (3 * W, 3)] * 2:
+        raise AssertionError(f'[26] RecurrentFlowNet: {record}, {shapes}')
+    forward_counts('[26] RecurrentFlowNet', counts, 2)
+    if REPO.joinpath('visualization').is_dir() and not any(
+            REPO.joinpath('visualization').iterdir()):
+        REPO.joinpath('visualization').rmdir()
+    print(f'[26] {time.perf_counter() - t_phase:.2f} s')
+
+    # --- 27. the tools on the card's machine -----------------------------
+    t_phase = time.perf_counter()
+    configs = REPO / 'dvs_of_training_framework_tpu_torch' / 'config'
+    testing = ['--test-config', str(configs / 'synth_testing.json')]
+    for key, label, tool in (
+            ('zero_aee', 'zero-flow baseline', zero_flow_baseline),
+            ('oracle_aee', 'constant-flow oracle', oracle_flow_baseline)):
+        lines, _, _ = run_tool(f'{label}, phase 14\'s test split', tool.main,
+                               testing)
+        aees = [float(re.search(r'AEE=([-\d.naif]+) px', line)[1])
+                for line in lines]
+        if len(aees) != 3 or not np.isfinite(aees).all():
+            raise AssertionError(f'[27] {label}: {lines}')
+        numbers[key] = aees
+    lines, _, _ = run_tool('aee_table over phase 15\'s live and EMA pickles',
+                           aee_table.main, [str(out / 'eval'), '--median'])
+    rows = [line.split(' | ')[0] for line in lines
+            if line.startswith('| step ')]
+    if rows != [f'| step {MAIN_STEPS}', f'| step {MAIN_STEPS} EMA']:
+        raise AssertionError(f'[27] aee_table: rows {rows}')
+
+    # phase 18's first resume: its log holds the run's file and the
+    # resume's; merged into one, as a log appended across restarts
+    merged, resumed = merged_log(out / 'run_recurrent_resume0',
+                                 out / 'merged_log')
+    before = len(read_events(merged))
+    run_tool('fix_events over phase 18\'s resumed run, its two event '
+             'files merged', fix_events.main, [str(merged.parent)])
+    after = read_events(merged)
+    latest = {(tag, e['step']): v for e in read_events(resumed)
+              for tag, v in e['scalars'].items()}
+    by_tag = {}
+    for e in after:
+        for tag, v in e['scalars'].items():
+            by_tag.setdefault(tag, []).append(e['step'])
+            if (tag, e['step']) in latest and latest[tag, e['step']] != v:
+                raise AssertionError(f'[27] fix_events kept a stale {tag} '
+                                     f'at step {e["step"]}')
+    if (len(after) >= before or not all(
+            b > a for steps in by_tag.values()
+            for a, b in zip(steps, steps[1:]))):
+        raise AssertionError(f'[27] fix_events: {before} -> {len(after)} '
+                             'records, steps not strictly increasing')
+    print(f'  {before} -> {len(after)} records; {len(by_tag)} tags, each '
+          'with strictly increasing steps; the resume\'s values kept')
+
+    _, _, us = run_tool(
+        'profile_dataset over phase 14\'s shards, -mbs 8',
+        profile_dataset.main, profile_dataset.parse_args(
+            ['--preprocessed-dataset-path', str(out / 'shards'), '-mbs',
+             '8', '--start', '2', '--num-iters', '8']))
+    numbers['profile_dataset_us'] = us
+    root = Path(os.environ['DVS_DATA_ROOT'])
+    run_tool('make_info over phase 14\'s raw sequences', make_info.main,
+             root / 'raw' / 'synth', out / 'info_check' / 'synth.hdf5')
+    made = read_info(str(out / 'info_check' / 'synth.hdf5'))
+    want = read_info(str(root / 'info' / 'synth.hdf5'))
+    if made != want:
+        raise AssertionError(f'[27] make_info: {made}, the simulator\'s '
+                             f'{want}')
+    print(f'  read_info of it equals the simulator\'s info file: {made}')
+    print(f'[27] {time.perf_counter() - t_phase:.2f} s')
+    return launches, numbers
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -2937,16 +3337,22 @@ def main():
                                   card)
         launches.update(paths)
 
+        # --- 26. and 27. the visualize CLI and the host tools ------------
+        paths, vis = visualize_phases(Path(out), capacity, device, card,
+                                      counters)
+        launches.update(paths)
+
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
-    # dense main() and its bare step, the host-image run()s, and the ranks'
-    # sharded steps, the spawned meshes' main() and the multi-host main()
+    # dense main() and its bare step, the host-image run()s, the ranks'
+    # sharded steps, the spawned meshes' main() and the multi-host main(),
+    # and the visualize CLI's EVFlowNet and RecurrentFlowNet runs
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
              'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
-             'hosts_main')
+             'hosts_main', 'visualize', 'recurrent_visualize')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -2961,6 +3367,7 @@ def main():
 
     print(json.dumps({'bake': bake}))
     print(json.dumps({'mesh': mesh}))
+    print(json.dumps({'visualize': vis}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

@@ -7,7 +7,7 @@ training step still has a gradient to follow.  The model reads neither
 events nor dense grids; it has no ``quantization_layer``, so the
 optimizer trains its one parameter as one group.  ``quantize`` gives
 zeros and ``compute_event_image`` the signed count image, as the JAX
-plugin's do.
+plugin's do; ``vis_flow`` (``DummyFlowNet/test.py``) is EVFlowNet's.
 """
 from typing import Tuple
 
@@ -16,6 +16,7 @@ import torch
 import torch.nn as nn
 
 from .evflownet import batch_size_of, predicted_windows
+from .evflownet import vis_flow  # noqa: F401
 from .optical_flow import BaseOpticalFlow
 
 

@@ -3,8 +3,9 @@ flow heads.
 
 Counterpart of ``EVFlowNet/net.py`` (``mish``, ``get_activation``,
 ``DenseParams``, ``QuantizationLayer``, ``ResBlock``, ``Predictor``,
-``Model`` with ``quantize`` and dense input, ``compute_event_image``) and
-of its plugin's ``OpticalFlow``, in NCHW.
+``Model`` with ``quantize`` and dense input, ``compute_event_image``), of
+its plugin's ``OpticalFlow`` and of its ``test.py`` (``vis_flow``), in
+NCHW.
 The voxel grid's channel index is ``l * C + c`` for element ``l`` and
 temporal channel ``c``, the order of the JAX model's ``[B, H, W, L*C]``.
 Parameter names follow the flax tree (``predictor.enc0.weight``,
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 
 from ..ops import kernel_mlp_cuda, voxel_cuda
 from ..ops.segment import segment_starts
+from ..utils.visualization import flow2img
 from .optical_flow import BaseOpticalFlow
 
 # standard deviation of a standard normal truncated to [-2, 2]
@@ -407,3 +409,9 @@ def compute_event_image(events, start_ts, stop_ts, shape, depth=9,
     np.add.at(out.reshape(-1), flat.reshape(-1).astype(np.int64),
               values.reshape(-1))
     return out
+
+
+def vis_flow(flow):
+    """HSV-render a [H, W, 2] flow field to a BGR uint8 image (the
+    plugin contract's ``test.py: vis_flow``)."""
+    return flow2img(flow[..., 0], flow[..., 1])

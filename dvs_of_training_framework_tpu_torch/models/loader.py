@@ -12,7 +12,8 @@ the port's own module of that name (``models/evflownet.py``,
 ``models/recurrent_flownet.py``, ``models/dummy_flownet.py``); the repo's
 root plugin directories of those names hold the JAX plugins and are never
 imported.  Any other directory is imported as a torch plugin: its
-``net.py`` for the model, its ``__init__.py`` for the inference wrapper.
+``net.py`` for the model, its ``__init__.py`` for the inference wrapper,
+its ``test.py`` for the flow rendering.
 
 Plugin contract of the port:
 
@@ -37,9 +38,10 @@ Plugin contract of the port:
 - its parameters of two or more dimensions belong to the port's ``Conv``
   or ``DenseParams``, ``torch.nn.Conv2d`` or ``torch.nn.Linear``, whose
   output axes ``output_axes`` knows;
-- ``OpticalFlow`` (a ``BaseOpticalFlow``) is its inference wrapper.
-
-The JAX contract's ``vis_flow`` is not part of the port yet.
+- ``OpticalFlow`` (a ``BaseOpticalFlow``) is its inference wrapper;
+- ``vis_flow(flow)`` renders one ``[H, W, 2]`` float32 flow field as a
+  BGR uint8 image (the three plugins: ``utils/visualization.flow2img``
+  of its two channels), for the visualize CLI's panels.
 """
 import importlib
 import importlib.util
@@ -106,6 +108,15 @@ def load_plugin(flownet_path):
     flownet_path = Path(flownet_path)
     return _port_module(flownet_path) or import_module(
         flownet_path.name, flownet_path / '__init__.py')
+
+
+def load_vis_flow(flownet_path):
+    """The plugin's ``vis_flow``: the port module's for the three
+    plugin names, else the one in the directory's ``test.py``."""
+    flownet_path = Path(flownet_path)
+    module = _port_module(flownet_path) or import_module(
+        f'{flownet_path.name}.test', flownet_path / 'test.py')
+    return module.vis_flow
 
 
 def init_model(args, device):

@@ -1,8 +1,9 @@
 """RecurrentFlowNet: a ConvGRU over the elements of a sample.
 
 Counterpart of ``RecurrentFlowNet/net.py`` (``ConvGRUCell``, ``Model``,
-``compute_event_image``, which is EVFlowNet's) and of its plugin's
-``OpticalFlow`` (``RecurrentFlowNet/__init__.py``), in NCHW.  Each
+``compute_event_image``, which is EVFlowNet's), of its plugin's
+``OpticalFlow`` (``RecurrentFlowNet/__init__.py``) and of its ``test.py``
+(``vis_flow``, EVFlowNet's), in NCHW.  Each
 element's voxel grid (EVFlowNet's ``QuantizationLayer``, channels
 ``l * C + c``) passes the ``embed`` 3x3 convolution and the activation,
 then one ConvGRU step; the state after element
@@ -21,8 +22,9 @@ import torch
 import torch.nn as nn
 
 from . import evflownet
-# the plugin's host-side image for --ev_images is EVFlowNet's
-from .evflownet import compute_event_image  # noqa: F401
+# the plugin's host-side image for --ev_images and its flow rendering
+# are EVFlowNet's
+from .evflownet import compute_event_image, vis_flow  # noqa: F401
 from .evflownet import (Conv, Predictor, QuantizationLayer, batch_size_of,
                         compute_dtype, get_activation, predicted_windows)
 from .optical_flow import BaseOpticalFlow

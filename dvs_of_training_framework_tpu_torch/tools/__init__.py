@@ -9,7 +9,18 @@ dvs_of_training_framework_tpu_torch.tools.<name>``:
   (``scripts/prepare_batches.py``);
 - ``quantize_preprocessed``: a trained model's representation baked
   into dense shards on the device, for ``--ev_images``
-  (``scripts/quantize_preprocessed.py``).
+  (``scripts/quantize_preprocessed.py``);
+- ``make_info``: the info file of raw sequences, their start times
+  (``scripts/make_info.py``);
+- ``zero_flow_baseline`` and ``oracle_flow_baseline``: the accuracy
+  protocol's yardsticks, the AEE of zero flow and of the best constant
+  flow over a test matrix (``scripts/{zero,oracle}_flow_baseline.py``);
+- ``aee_table``: the evaluation CLI's pickles as ACCURACY.md's table,
+  EMA rows apart (``scripts/aee_table.py``);
+- ``fix_events``: TensorBoard logs repaired after restarts
+  (``scripts/fix_events.py``);
+- ``profile_dataset``: the training loader's µs an iteration
+  (``scripts/profile_dataset.py``).
 
 They take the scripts' arguments and write the npy store
 (``data/store.py``), with numpy (and scipy for the ``varied`` motion)

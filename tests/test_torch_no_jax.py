@@ -1,8 +1,8 @@
 """The port stands without JAX, and its kernel wrappers route by device.
 
 Both subprocess checks below run in a fresh interpreter where jax, flax,
-optax, h5py, yaml, psutil, tqdm and msgpack cannot be imported (the card's
-machine lacks them), and fail if any module of the JAX package
+optax, h5py, yaml, psutil, tqdm, msgpack and PIL cannot be imported (the
+card's machine lacks them, or may), and fail if any module of the JAX package
 (``dvs_of_training_framework_tpu``, the port aside) or of the repo's root
 plugin packages (``EVFlowNet``, ``RecurrentFlowNet``, ``DummyFlowNet``,
 which import flax) was loaded:
@@ -22,7 +22,11 @@ which import flax) was loaded:
   bakes that checkpoint's representation into dense shards, and
   ``main`` trains a step on them with ``--ev_images``; then
   ``main`` trains RecurrentFlowNet (``--flownet_path RecurrentFlowNet``)
-  a step on the raw split's 2-element samples.
+  a step on the raw split's 2-element samples; the visualize CLI's
+  ``main`` renders the raw validation split with the last checkpoint and
+  a spawned writer, which runs the script's top level too and reports
+  what it loaded; then the zero-flow and oracle baselines, the AEE
+  table, the log repair, the info file and the loader's timing.
 - ``train.main(['--mesh', 'data:2', ...])`` spawning two gloo workers
   that train a step and validate sharded; the script is a file, so the
   spawned workers run its top level, install the same block and report
@@ -58,7 +62,7 @@ REPO = Path(__file__).resolve().parents[1]
 BLOCK = r'''
 import sys
 BLOCKED = ('jax', 'flax', 'optax', 'h5py', 'yaml', 'psutil', 'tqdm',
-           'msgpack')
+           'msgpack', 'PIL')
 for name in BLOCKED:
     sys.modules[name] = None          # import fails
 
@@ -80,7 +84,10 @@ for info in pkgutil.walk_packages(port.__path__, port.__name__ + '.'):
     walked.add(info.name[len(port.__name__) + 1:])
 assert {'parallel.mesh', 'parallel.distributed', 'utils.timer',
         'utils.monitor', 'utils.profiling', 'utils.performance',
-        'utils.logging'} <= walked, walked
+        'utils.logging', 'utils.visualization', 'visualize',
+        'tools.zero_flow_baseline', 'tools.oracle_flow_baseline',
+        'tools.aee_table', 'tools.fix_events', 'tools.profile_dataset',
+        'tools.make_info'} <= walked, walked
 from dvs_of_training_framework_tpu_torch.data import pad_batch
 from dvs_of_training_framework_tpu_torch.losses import MultiScaleLoss
 from dvs_of_training_framework_tpu_torch.models import Model
@@ -183,82 +190,108 @@ print('LOADED', loaded())
 
 
 MAIN = BLOCK + r'''
-import json, os, tempfile
-from pathlib import Path
-import numpy as np
-from dvs_of_training_framework_tpu_torch import test, train
-from dvs_of_training_framework_tpu_torch.data import synthetic
-from dvs_of_training_framework_tpu_torch.tools import (
-    make_synthetic_mvsec, prepare_batches, quantize_preprocessed,
-    sequence2samples)
-from dvs_of_training_framework_tpu_torch.training.serializer import \
-    Serializer
+import atexit
+if __name__ == '__mp_main__':          # a spawned panel writer
+    atexit.register(lambda: print('LOADED', loaded(), flush=True))
+if __name__ == '__main__':
+  import json, os, tempfile
+  from pathlib import Path
+  import numpy as np
+  from dvs_of_training_framework_tpu_torch import test, train, visualize
+  from dvs_of_training_framework_tpu_torch.data import synthetic
+  from dvs_of_training_framework_tpu_torch.tools import (
+      aee_table, fix_events, make_info, make_synthetic_mvsec,
+      oracle_flow_baseline, prepare_batches, profile_dataset,
+      quantize_preprocessed, sequence2samples, zero_flow_baseline)
+  from dvs_of_training_framework_tpu_torch.training.serializer import \
+      Serializer
+  from dvs_of_training_framework_tpu_torch.utils.visualization import \
+      read_png
 
-# cheaper textures, drawn by the simulator's own code
-scene, foreground = synthetic.make_scene, synthetic.make_foreground
-synthetic.make_scene = lambda rng, shape=synthetic.SCENE, num_blobs=260: \
-    scene(rng, shape, max(num_blobs // 40, 1))
-synthetic.make_foreground = lambda rng, shape=synthetic.SCENE, \
-    num_objects=28: foreground(rng, shape, 4)
-configs = Path(synthetic.__file__).parents[1] / 'config'
+  # cheaper textures, drawn by the simulator's own code
+  scene, foreground = synthetic.make_scene, synthetic.make_foreground
+  synthetic.make_scene = lambda rng, shape=synthetic.SCENE, \
+      num_blobs=260: scene(rng, shape, max(num_blobs // 40, 1))
+  synthetic.make_foreground = lambda rng, shape=synthetic.SCENE, \
+      num_objects=28: foreground(rng, shape, 4)
+  configs = Path(synthetic.__file__).parents[1] / 'config'
 
-with tempfile.TemporaryDirectory() as tmp:
-    tmp = Path(tmp)
-    root = tmp / 'synth'
-    make_synthetic_mvsec.main([str(root), '--motion', 'varied', '--speed',
-                               '0.35', '--train-secs', '0.4', '--eval-secs',
-                               '0.25', '--val-secs', '0.25'])
-    os.environ['DVS_DATA_ROOT'] = str(root)
-    sequence2samples.main([str(configs / 'synth_train_datasets.json')])
-    split = root / 'training' / 'synth'
-    (split / 'outdoor_day2').symlink_to(split / 'outdoor_synth2')
-    (split / 'outdoor_day1').symlink_to(split / 'outdoor_synth3')
-    os.environ['DVS_DATA_PATH'] = str(split)
-    shards = tmp / 'shards'
-    prepare_batches.main(prepare_batches.parse_args([
-        '-o', str(shards), '-s', '8', '--samples-per-file', '4',
-        '--height', '32', '--width', '32', '-mbs', '2', '--num_workers',
-        '0']))
-    run = tmp / 'run'
-    for steps in (2, 3):
-        train.main(['-m', str(run), '-d', 'cpu', '-bs', '2', '-mbs', '2',
-                    '-ne', str(steps), '--height', '32', '--width', '32',
-                    '--num_workers', '0', '--event-capacity', '65536',
-                    '--preprocessed-dataset-path', str(shards),
-                    '--checkpointing_interval', '1',
-                    '--permanent_interval', '1', '-vp', '2',
-                    '--ema-decay', '0.999', '--allow-arguments-change'])
-    assert Serializer(run).list_known_steps() == [0, 1, 2, 3]
-    config = json.loads((configs / 'synth_testing.json').read_text())
-    config['synth']['outdoor_synth1'].update(step=[1, 2],
-                                             test_shape=[32, 32])
-    (tmp / 'testing.json').write_text(json.dumps(config))
-    test.main(['-m', str(run), '-o', str(tmp / 'eval'), '-s', '3', '-d',
-               'cpu', '--use-ema', '--test-config',
-               str(tmp / 'testing.json')])
-    assert (tmp / 'eval' / 'step_3_ema.pkl').is_file()
-    # bake the run's representation, then train on the dense shards
-    baked = tmp / 'baked'
-    stats = quantize_preprocessed.main(quantize_preprocessed.parse_args([
-        '-o', str(baked), '-d', 'cpu', '-s', '4', '--samples-per-file',
-        '2', '-mbs', '2', '--height', '32', '--width', '32',
-        '--num_workers', '0', '--preprocessed-dataset-path', str(shards),
-        '--event-capacity', '65536', '-sp', str(run / 'step_3.ckpt')]))
-    assert stats.samples == 4
-    train.main(['-m', str(tmp / 'dense'), '-d', 'cpu', '-bs', '2', '-mbs',
-                '2', '-ne', '1', '--height', '32', '--width', '32',
-                '--num_workers', '0', '--event-capacity', '65536',
-                '--ev_images', '--preprocessed-dataset-path', str(baked),
-                '-sp', str(run / 'step_3.ckpt'), '-vp', '1'])
-    assert Serializer(tmp / 'dense').list_known_steps() == [0, 1]
-    train.main(['-m', str(tmp / 'recurrent'), '-d', 'cpu', '-bs', '2',
-                '-mbs', '2', '-ne', '1', '--height', '32', '--width', '32',
-                '--num_workers', '0', '--event-capacity', '65536',
-                '--flownet_path', 'RecurrentFlowNet',
-                '--min-sequence-length', '2', '--max-sequence-length', '2',
-                '-vp', '1'])
-    assert Serializer(tmp / 'recurrent').list_known_steps() == [0, 1]
-print('LOADED', loaded())
+  with tempfile.TemporaryDirectory() as tmp:
+      tmp = Path(tmp)
+      root = tmp / 'synth'
+      make_synthetic_mvsec.main([str(root), '--motion', 'varied', '--speed',
+                                 '0.35', '--train-secs', '0.4', '--eval-secs',
+                                 '0.25', '--val-secs', '0.25'])
+      os.environ['DVS_DATA_ROOT'] = str(root)
+      sequence2samples.main([str(configs / 'synth_train_datasets.json')])
+      split = root / 'training' / 'synth'
+      (split / 'outdoor_day2').symlink_to(split / 'outdoor_synth2')
+      (split / 'outdoor_day1').symlink_to(split / 'outdoor_synth3')
+      os.environ['DVS_DATA_PATH'] = str(split)
+      shards = tmp / 'shards'
+      prepare_batches.main(prepare_batches.parse_args([
+          '-o', str(shards), '-s', '8', '--samples-per-file', '4',
+          '--height', '32', '--width', '32', '-mbs', '2', '--num_workers',
+          '0']))
+      run = tmp / 'run'
+      for steps in (2, 3):
+          train.main(['-m', str(run), '-d', 'cpu', '-bs', '2', '-mbs', '2',
+                      '-ne', str(steps), '--height', '32', '--width', '32',
+                      '--num_workers', '0', '--event-capacity', '65536',
+                      '--preprocessed-dataset-path', str(shards),
+                      '--checkpointing_interval', '1',
+                      '--permanent_interval', '1', '-vp', '2',
+                      '--ema-decay', '0.999', '--allow-arguments-change'])
+      assert Serializer(run).list_known_steps() == [0, 1, 2, 3]
+      config = json.loads((configs / 'synth_testing.json').read_text())
+      config['synth']['outdoor_synth1'].update(step=[1, 2],
+                                               test_shape=[32, 32])
+      (tmp / 'testing.json').write_text(json.dumps(config))
+      test.main(['-m', str(run), '-o', str(tmp / 'eval'), '-s', '3', '-d',
+                 'cpu', '--use-ema', '--test-config',
+                 str(tmp / 'testing.json')])
+      assert (tmp / 'eval' / 'step_3_ema.pkl').is_file()
+      # bake the run's representation, then train on the dense shards
+      baked = tmp / 'baked'
+      stats = quantize_preprocessed.main(quantize_preprocessed.parse_args([
+          '-o', str(baked), '-d', 'cpu', '-s', '4', '--samples-per-file',
+          '2', '-mbs', '2', '--height', '32', '--width', '32',
+          '--num_workers', '0', '--preprocessed-dataset-path', str(shards),
+          '--event-capacity', '65536', '-sp', str(run / 'step_3.ckpt')]))
+      assert stats.samples == 4
+      train.main(['-m', str(tmp / 'dense'), '-d', 'cpu', '-bs', '2', '-mbs',
+                  '2', '-ne', '1', '--height', '32', '--width', '32',
+                  '--num_workers', '0', '--event-capacity', '65536',
+                  '--ev_images', '--preprocessed-dataset-path', str(baked),
+                  '-sp', str(run / 'step_3.ckpt'), '-vp', '1'])
+      assert Serializer(tmp / 'dense').list_known_steps() == [0, 1]
+      train.main(['-m', str(tmp / 'recurrent'), '-d', 'cpu', '-bs', '2',
+                  '-mbs', '2', '-ne', '1', '--height', '32', '--width', '32',
+                  '--num_workers', '0', '--event-capacity', '65536',
+                  '--flownet_path', 'RecurrentFlowNet',
+                  '--min-sequence-length', '2', '--max-sequence-length', '2',
+                  '-vp', '1'])
+      assert Serializer(tmp / 'recurrent').list_known_steps() == [0, 1]
+      # the visualize CLI over the raw validation split, then the tools
+      panels = tmp / 'panels'
+      visualize.choose_output_path = lambda args: (
+          panels.mkdir(exist_ok=True), panels)[1]
+      record = visualize.main([
+          '-m', str(run), '-sp', str(run / 'step_3.ckpt'), '-d', 'cpu',
+          '--height', '32', '--width', '32', '--num_workers', '0',
+          '--event-capacity', '65536'], num_writers=1)
+      assert record['panels'] == 5, record
+      assert read_png(panels / '0004.png').shape == (80 + 32 + 48, 64, 3)
+      zero_flow_baseline.main(['--test-config', str(tmp / 'testing.json')])
+      oracle_flow_baseline.main(['--test-config',
+                                 str(tmp / 'testing.json')])
+      aee_table.main([str(tmp / 'eval')])
+      fix_events.main([str(run / 'log')])
+      make_info.main(root / 'raw' / 'synth', tmp / 'info' / 'synth.hdf5')
+      profile_dataset.main(profile_dataset.parse_args([
+          '--start', '1', '--num-iters', '2', '--num_workers', '0',
+          '-mbs', '2', '--height', '32', '--width', '32']))
+  print('LOADED', loaded())
 '''
 
 
@@ -303,12 +336,17 @@ def test_loop_checkpoints_and_resumes_without_missing_packages():
     assert 'LOADED []' in proc.stdout, proc.stdout
 
 
-def test_main_builds_trains_resumes_and_evaluates_without_jax():
+def test_main_builds_trains_resumes_and_evaluates_without_jax(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, '-c', MAIN], cwd=REPO, env=env,
+    script = tmp_path / 'chain.py'
+    script.write_text(MAIN)
+    proc = subprocess.run([sys.executable, str(script)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert 'LOADED []' in proc.stdout, proc.stdout
+    # the script and the visualize CLI's writer, each after its imports
+    assert proc.stdout.count('LOADED []') == 2, proc.stdout
+    assert 'LOADED [' not in proc.stdout.replace('LOADED []', ''), \
+        proc.stdout
 
 
 def test_mesh_ranks_train_without_jax(tmp_path):
