@@ -179,7 +179,23 @@ Phases:
     merged: steps strictly increasing per tag afterwards, the resume's
     values kept), ``profile_dataset`` over phase 14's shards (µs an
     iteration) and ``make_info`` over phase 14's raw sequences (equal,
-    through ``read_info``, to the simulator's info file).
+    through ``read_info``, to the simulator's info file);
+28. the accuracy protocol's three scripts
+    (``dvs_of_training_framework_tpu_torch/scripts/``) as subprocesses,
+    each ``python -m`` child with a ``sitecustomize`` first on its path
+    that records, when it exits, its arguments, the kernels' launches and
+    any module of the JAX package or from outside the port that it
+    loaded (none may be): ``prep_accuracy_varied.sh`` at phase 14's cut
+    over phase 14's layout (its existence checks skip the simulator and
+    the slicing; ``prepare_batches`` writes 96 samples), then
+    ``run_accuracy_varied.sh`` with the production recipe at full width
+    for 8 steps, and again on the same directory to 12 with validation
+    every 4 steps: each training child launches K1 and K2 backward once
+    a step and the fused warp's backward 4 times (the second run 4
+    steps: it resumed at step 8), and the checkpoints kept are steps 0,
+    8 and 12; then ``eval_accuracy_varied.sh``: one pickle a kept
+    checkpoint for each matrix, finite, a row of ``aee_table`` for each,
+    and K1 and K2 forward alone in the evaluation children.
 
 Every phase from 17 on prints its own seconds.  A phase that starts
 processes puts a time limit on them, and a rank that fails stops the
@@ -255,6 +271,10 @@ BARE_ARGS = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
 # of the spawned mesh's main() and of the multi-host flags' main()
 MESHES = ('data:2', 'data:1,event:2')
 MESH_STEPS, HOSTS_STEPS = 12, 8
+# phase 28: the accuracy scripts' first run and its resume, in steps,
+# and the resumed run's validation period
+ACCURACY_STEPS, ACCURACY_EVERY = (8, 12), 4
+ACCURACY_LIMIT = 240           # seconds a script may take
 # the kernels that phase 25's trace of a training step must name
 TRACE_KERNELS = ('voxelize_tile_kernel', 'voxelize_bwd_kernel',
                  'kernel_mlp_fwd_kernel', 'kernel_mlp_bwd_kernel',
@@ -2175,14 +2195,15 @@ def join_spawned(context, seconds, label):
                                  f'{seconds} s')
 
 
-def run_ranks(commands, seconds, label):
+def run_ranks(commands, seconds, label, env=None):
     """Run ``commands`` together, each in a session of its own; returns
     their outputs.  One that fails, or the time limit, kills them all and
     raises with the outputs."""
     import signal
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True, cwd=REPO,
-                              start_new_session=True) for cmd in commands]
+                              env=env, start_new_session=True)
+             for cmd in commands]
     outputs = [None] * len(procs)
     failure = None
     deadline = time.monotonic() + seconds
@@ -2886,6 +2907,126 @@ def visualize_phases(out, capacity, device, card, counters):
     return launches, numbers
 
 
+def accuracy_phase(out):
+    """Phase 28: the three accuracy scripts as subprocesses over phase
+    14's layout and shards in ``out``; returns the launch counts of their children
+    and the numbers of the accuracy JSON line."""
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+    t_phase = time.perf_counter()
+    scripts = REPO / 'dvs_of_training_framework_tpu_torch' / 'scripts'
+    layout, shards, run = out / 'synth', out / 'shards', out / 'acc_run'
+    site, probes = out / 'acc_site', out / 'acc_probes'
+    site.mkdir()
+    probes.mkdir()
+    # every python child of the scripts writes what it ran, launched and
+    # loaded into PROBE_DIR
+    shutil.copy(REPO / 'tests' / 'child_probe.py', site / 'sitecustomize.py')
+    # the scripts' `python` is this interpreter
+    (site / 'python').write_text(f'#!/bin/sh\nexec {sys.executable} "$@"\n')
+    (site / 'python').chmod(0o755)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ('DVS_DATA_PATH', 'DVS_DATA_ROOT', 'PYTHONPATH')}
+    env.update(PYTHONPATH=str(site), PROBE_DIR=str(probes),
+               PROBE_REPO=str(REPO), PATH=f'{site}:{env["PATH"]}',
+               LAYOUT=str(layout), SHARDS=str(shards))
+    seconds, children = {}, {}
+
+    def script(label, name, args, **extra):
+        before = set(probes.iterdir())
+        t0 = time.perf_counter()
+        output, = run_ranks([['bash', str(scripts / name), *map(str, args)]],
+                            ACCURACY_LIMIT, f'[28] {label}',
+                            env=dict(env, **extra))
+        seconds[label] = time.perf_counter() - t0
+        children[label] = [json.loads(p.read_text()) for p in
+                           sorted(set(probes.iterdir()) - before)]
+        print(f'[28] {label}: {name} {" ".join(map(str, args))} '
+              f'({seconds[label]:.2f} s), children: ' + ', '.join(
+                  Path(c['argv'][0]).stem for c in children[label]))
+        return output
+
+    cut = {flag.lstrip('-').split('-')[0].upper() + '_SECS': f'{secs:g}'
+           for flag, secs, _ in SYNTH_CUTS}
+    # over phase 14's layout and shards (their --samples-per-file, so the
+    # arguments match; the script runs from the checkout, this process
+    # maybe not, so the revisions may not): every step of prep finds its
+    # output and skips
+    shard_times = {p: p.stat().st_mtime_ns for p in shards.glob('*.hdf5')}
+    script('prep', 'prep_accuracy_varied.sh', [layout],
+           SIZE=str(SHARD_SAMPLES),
+           PREP_ARGS='--samples-per-file 32 --allow-obsolete-code', **cut)
+    ran = [Path(c['argv'][0]).stem for c in children['prep']]
+    now = {p: p.stat().st_mtime_ns for p in shards.glob('*.hdf5')}
+    if ran != ['prepare_batches'] or not shard_times or now != shard_times:
+        raise AssertionError(f'[28] prep over phase 14\'s layout ran {ran}; '
+                             f'shards {shard_times} then {now}')
+
+    recipe = ['--precision', 'bfloat16', '--loss-precision', 'bf16x2',
+              '--grad-clip-norm', '1.0']
+    first, last = ACCURACY_STEPS
+    script(f'run to {first}', 'run_accuracy_varied.sh', [run, *recipe],
+           STEPS=str(first))
+    script(f'run to {last}', 'run_accuracy_varied.sh',
+           [run, *recipe, '-vp', str(ACCURACY_EVERY)], STEPS=str(last),
+           SKIP_VALIDATION='0')
+    kept = Serializer(run).list_known_steps()
+    passed = int(Serializer(run).read_state_dict(last)['samples_passed'])
+    if kept != [0, first, last] or passed != last * 8:
+        raise AssertionError(f'[28] checkpoints {kept}, samples at step '
+                             f'{last}: {passed}')
+    train_launches = []
+    for label, steps in ((f'run to {first}', first),
+                         (f'run to {last}', last - first)):
+        child, = children[label]
+        train_launches.append(check_rank_launches(
+            f'[28] {label}', [{'rank': 0, 'launches': child['launches']}],
+            steps))
+    print(f'  checkpoints {kept}; K1, K2 and the fused warp in both '
+          f'training children, the second resumed at step {first}: '
+          f'{train_launches}')
+
+    output = script('eval', 'eval_accuracy_varied.sh', [run, out / 'acc'])
+    rows = {}
+    for matrix in ('val', 'eval'):
+        pickles = [out / f'acc_{matrix}' / f'step_{s}.pkl' for s in kept]
+        if sorted((out / f'acc_{matrix}').glob('*.pkl')) != sorted(pickles):
+            raise AssertionError(f'[28] {matrix} pickles {pickles}')
+        for p in pickles:
+            aees = [r.mAEE for r in pickle.loads(p.read_bytes())]
+            if not aees or not np.isfinite(aees).all():
+                raise AssertionError(f'[28] {p}: mean AEE {aees}')
+        table = output.split(f'### {out}/acc_{matrix}\n')[1].splitlines()
+        rows[matrix] = table[:len(kept)]
+        if [r.split(' | ')[0] for r in rows[matrix]] != [
+                f'| step {s}' for s in kept]:
+            raise AssertionError(f'[28] aee_table: {output}')
+        print(f'  {matrix}: ' + '; '.join(rows[matrix]))
+    evaluated = [c['launches'] for c in children['eval']
+                 if c['launches'] is not None]
+    if len(evaluated) != 2 or any(
+            n['voxelize_fwd'] == 0 or n['kernel_mlp_fwd'] != n['voxelize_fwd']
+            or sum(n.values()) != 2 * n['voxelize_fwd'] for n in evaluated):
+        raise AssertionError(f'[28] the evaluation children launched '
+                             f'{evaluated}')
+
+    records = [c for label in children for c in children[label]]
+    foreign = {Path(c['argv'][0]).stem: c['foreign'] for c in records
+               if c['foreign']}
+    if foreign:
+        raise AssertionError(f'[28] children loaded JAX-side modules or '
+                             f'modules from outside the port: {foreign}')
+    launches = {k: sum(c['launches'][k] for c in records
+                       if c['launches'] is not None)
+                for k in train_launches[0]}
+    print(f'  {len(records)} children, none loaded JAX or a module outside '
+          f'the port; launches {launches}')
+    print(f'[28] {time.perf_counter() - t_phase:.2f} s')
+    return launches, {'seconds': seconds, 'checkpoints': kept,
+                      'train_launches': train_launches,
+                      'eval_launches': evaluated, 'rows': rows}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -3341,18 +3482,23 @@ def main():
         paths, vis = visualize_phases(Path(out), capacity, device, card,
                                       counters)
         launches.update(paths)
+        torch.cuda.empty_cache()
+
+        # --- 28. the accuracy scripts over phase 14's layout -------------
+        launches['accuracy'], accuracy = accuracy_phase(Path(out))
 
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
     # dense main() and its bare step, the host-image run()s, the ranks'
     # sharded steps, the spawned meshes' main() and the multi-host main(),
-    # and the visualize CLI's EVFlowNet and RecurrentFlowNet runs
+    # the visualize CLI's EVFlowNet and RecurrentFlowNet runs, and the
+    # accuracy scripts' training and evaluation children
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
              'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
-             'hosts_main', 'visualize', 'recurrent_visualize')
+             'hosts_main', 'visualize', 'recurrent_visualize', 'accuracy')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -3368,6 +3514,7 @@ def main():
     print(json.dumps({'bake': bake}))
     print(json.dumps({'mesh': mesh}))
     print(json.dumps({'visualize': vis}))
+    print(json.dumps({'accuracy': accuracy}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

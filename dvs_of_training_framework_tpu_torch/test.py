@@ -3,9 +3,10 @@
 
 Counterpart of the repo's root ``test.py`` on one device: it evaluates
 one checkpoint (``-s``) or every known checkpoint of a run directory
-against a test matrix (``--test-config``, JSON or YAML; default
-``config/testing.yml``), writes one pickle of per-configuration results a
-checkpoint (``step_<n>.pkl``, ``step_<n>_ema.pkl`` with ``--use-ema``),
+against a test matrix (``--test-config``, JSON or YAML; default the
+package's ``config/testing.json``, the JSON twin of ``config/testing.yml``,
+so that no PyYAML is needed), writes one pickle of per-configuration
+results a checkpoint (``step_<n>.pkl``, ``step_<n>_ema.pkl`` with ``--use-ema``),
 each with its mean AEE, %AEE<3px, mean median EE and per-window records,
 and aggregates the results to TensorBoard keyed by samples passed.  The
 data roots come from ``$DVS_DATA_ROOT`` (``raw/`` and ``info/``), which
@@ -49,7 +50,7 @@ from .utils.options import (add_test_arguments, options2model_kwargs,
                             validate_test_args)
 from .utils.tb import SummaryWriter
 
-REPO = Path(__file__).resolve().parents[1]
+CONFIG = Path(__file__).resolve().parent / 'config'
 
 
 def parse_args(argv=None):
@@ -221,7 +222,7 @@ def build_test_matrix(args=None):
     """
     root = data_root('DVS_DATA_ROOT')
     config_path = getattr(args, 'test_config', None) \
-        or REPO / 'config' / 'testing.yml'
+        or CONFIG / 'testing.json'
     config = read_config(config_path)
     return list(iterate_test_matrix(config, root / 'raw', root / 'info'))
 

@@ -2,7 +2,9 @@
 """Slice raw MVSEC sequences into per-element training files.
 
 The port's entry point after ``scripts/sequence2samples.py``, with the
-same argument (a config of time ranges, ``.json`` or ``.yml``) and the
+same argument (a config of time ranges, ``.json`` or ``.yml``; default
+the package's ``config/training_datasets.json``, the JSON twin of the
+script's ``config/training_datasets.yml``) and the
 data root ``$DVS_DATA_ROOT``, which must be set (the script also falls
 back to a docker mount or to a ``data/`` directory beside the checkout).
 For every inter-frame window of each configured sequence it writes one file of the npy store holding the window's events,
@@ -26,7 +28,7 @@ from ..evaluation.testing import read_config
 from ..utils.common import data_root
 from ..utils.progress import progress
 
-REPO = Path(__file__).resolve().parents[2]
+CONFIG = Path(__file__).resolve().parents[1] / 'config'
 
 
 def _verify_window(events, window, lo, hi, t_start, t_stop):
@@ -88,7 +90,7 @@ def main(argv=None):
     info_dir = data_dir / 'info'
 
     config_path = (Path(argv[0]) if argv
-                   else REPO / 'config' / 'training_datasets.yml')
+                   else CONFIG / 'training_datasets.json')
     config = read_config(config_path)
 
     for ds_name, sequences in config.items():

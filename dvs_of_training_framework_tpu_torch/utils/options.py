@@ -228,7 +228,8 @@ _TEST = [
           help='concurrent evaluations per device')),
     (('--test-config',),
      dict(dest='test_config', default=None, type=Path,
-          help='evaluation matrix YAML (default config/testing.yml)')),
+          help='evaluation matrix config (.json, or .yml with PyYAML; '
+               'default the package\'s config/testing.json)')),
     (('--eval-batch-windows',),
      dict(dest='eval_batch_windows', default=8, type=int,
           help='frame windows batched per device inference call '

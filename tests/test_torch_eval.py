@@ -136,7 +136,9 @@ def test_evaluate_matches_jax(batch_windows):
 
 
 @pytest.mark.parametrize('name', ['synth_testing', 'synth_val',
-                                  'synth_train_datasets'])
+                                  'synth_train_datasets', 'testing',
+                                  'training_datasets',
+                                  'synth_testing_step1'])
 def test_json_configs_equal_the_yaml_originals(name):
     want = yaml.safe_load((REPO / 'config' / f'{name}.yml').read_text())
     got = port_testing.read_config(PORT_CONFIG / f'{name}.json')

@@ -27,6 +27,10 @@ which import flax) was loaded:
   a spawned writer, which runs the script's top level too and reports
   what it loaded; then the zero-flow and oracle baselines, the AEE
   table, the log repair, the info file and the loader's timing.
+- the evaluation CLI's ``build_test_matrix``, ``sequence2samples`` and
+  both baselines with no config given: each reads its default, the JSON
+  twin of ``config/testing.yml`` or ``config/training_datasets.yml`` in
+  the package's ``config/``, and then stops at the data, which is absent;
 - ``train.main(['--mesh', 'data:2', ...])`` spawning two gloo workers
   that train a step and validate sharded; the script is a file, so the
   spawned workers run its top level, install the same block and report
@@ -42,6 +46,7 @@ which import flax) was loaded:
   file imports no JAX, so on a machine without it run ``python -m pytest
   --noconftest tests/test_torch_no_jax.py``.
 """
+import json
 import os
 import subprocess
 import sys
@@ -347,6 +352,61 @@ def test_main_builds_trains_resumes_and_evaluates_without_jax(tmp_path):
     assert proc.stdout.count('LOADED []') == 2, proc.stdout
     assert 'LOADED [' not in proc.stdout.replace('LOADED []', ''), \
         proc.stdout
+
+
+DEFAULTS = BLOCK + r'''
+import json, os, sys, tempfile
+from pathlib import Path
+from dvs_of_training_framework_tpu_torch import test
+from dvs_of_training_framework_tpu_torch.evaluation import read_config
+from dvs_of_training_framework_tpu_torch.tools import (
+    oracle_flow_baseline, sequence2samples, zero_flow_baseline)
+
+read = []
+def recording(path):
+    read.append((str(path), read_config(path)))
+    return read[-1][1]
+test.read_config = sequence2samples.read_config = recording
+
+with tempfile.TemporaryDirectory() as root:     # the config, and no data
+    os.environ['DVS_DATA_ROOT'] = root
+    for label, run in (('test', test.build_test_matrix),
+                       ('sequence2samples', lambda: sequence2samples.main([])),
+                       ('zero_flow_baseline', lambda: zero_flow_baseline.main([])),
+                       ('oracle_flow_baseline',
+                        lambda: oracle_flow_baseline.main([]))):
+        try:
+            run()
+        except FileNotFoundError as missing:
+            print('READ', json.dumps([label, *read.pop(), str(missing)]))
+print('LOADED', loaded())
+'''
+
+
+def test_cli_defaults_read_json_without_yaml():
+    """The evaluation CLI's matrix, ``sequence2samples``' time ranges and
+    both baselines' matrix default to the JSON twins of
+    ``config/{testing,training_datasets}.yml`` in the package's
+    ``config/``: each reads its default with PyYAML blocked, then stops at
+    the data, which is not there."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', DEFAULTS], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert 'LOADED []' in proc.stdout, proc.stdout
+    config = REPO / 'dvs_of_training_framework_tpu_torch' / 'config'
+    reads = {label: (path, doc, missing) for label, path, doc, missing in (
+        json.loads(line[5:]) for line in proc.stdout.splitlines()
+        if line.startswith('READ '))}
+    assert sorted(reads) == ['oracle_flow_baseline', 'sequence2samples',
+                             'test', 'zero_flow_baseline'], proc.stdout
+    for label, (path, doc, missing) in reads.items():
+        name = 'training_datasets' if label == 'sequence2samples' \
+            else 'testing'
+        assert Path(path) == config / f'{name}.json'
+        assert doc == json.loads(Path(path).read_text())
+        assert 'info/mvsec.hdf5' in missing, missing
 
 
 def test_mesh_ranks_train_without_jax(tmp_path):

@@ -24,7 +24,7 @@ def env(**extra):
     return out
 
 
-def run_group(commands, log_dir, timeout, environ=None):
+def run_group(commands, log_dir, timeout, environ=None, cwd=REPO):
     """Run ``commands`` (argument lists) together; returns their outputs
     once all have exited 0.  Raises AssertionError with the outputs when
     one fails or ``timeout`` seconds pass first."""
@@ -35,7 +35,7 @@ def run_group(commands, log_dir, timeout, environ=None):
     for cmd, log in zip(commands, logs):
         with open(log, 'w') as out:
             procs.append(subprocess.Popen(
-                cmd, stdout=out, stderr=subprocess.STDOUT, cwd=REPO,
+                cmd, stdout=out, stderr=subprocess.STDOUT, cwd=cwd,
                 env=environ or env(), start_new_session=True))
     deadline = time.monotonic() + timeout
     failure = None
