@@ -60,10 +60,12 @@ Phases:
 11. the training loop through the CLI's ``run()`` with the production
     recipe (bf16, ``bf16x2``, bs 8, lr 1e-3, half-life 20000, 200 warm-up
     steps, clip 1.0, EMA 0.999): 12 steps over an in-memory stream of
-    bench batches with one oversized batch to skip, checkpoints and
-    validation (2 other bench batches) every 4 steps, with the launch
-    counters reset just before and checked just after; prints the loop's
-    step time, the checkpoint write time and size and the validation time;
+    bench batches with one oversized batch to skip (the default window of
+    16 is more than 12 steps: slot by slot), checkpoints and validation
+    (2 other bench batches, one window of 2 replayed) every 4 steps, with
+    the launch counters reset just before and checked just after; prints
+    the loop's step time, the checkpoint write time and size and the
+    validation time;
 12. resume: a fresh model and optimizer load checkpoint 8, bit for bit,
     and train to step 12 through the loop as phase 11 does, under the
     profiler for the batch uploads; every parameter is held against the
@@ -76,11 +78,11 @@ Phases:
     ``varied`` benchmark (``scripts/prep_accuracy_varied.sh``'s chain,
     cut in its durations and its sample count only; each tool timed), and
     the training CLI's ``main()`` trains 12 production-recipe steps on its
-    shards (bs 8, 256x256, phase 11's event capacity 2^17, checkpoints
-    and validation on the raw val split every 6 steps), with the launch
-    counters reset just before and read just after; its step time beside
-    phase 11's ``run()`` loop step, at the same capacity, is the reader's
-    cost;
+    shards one batch at a time (``--device-queue-window 0``; bs 8,
+    256x256, phase 11's event capacity 2^17, checkpoints and validation on
+    the raw val split every 6 steps), with the launch counters reset just
+    before and read just after; its step time beside phase 11's ``run()``
+    loop step, at the same capacity, is the reader's cost;
 15. the evaluation CLI's ``main()`` on that run's last checkpoint, live
     and ``--use-ema``, over ``config/synth_testing.json`` (mean AEE, %AEE,
     mean median EE), with the counters reset just before; then
@@ -103,9 +105,9 @@ Phases:
 18. 2-element shards built by ``tools.prepare_batches``, ``train.main()``
     with ``--flownet_path RecurrentFlowNet`` for 12 recipe steps at the
     capacity ``--event-capacity auto`` resolves, checkpoints and
-    validation every 4 steps; two copies of the run cut back to
-    checkpoint 8 resume through ``main()`` and are held to phase 12's
-    rule; then the evaluation CLI's ``main()`` scores step 12 (one GRU
+    validation every 4 steps, in windows of 4 replayed as CUDA graphs;
+    two copies of the run cut back to checkpoint 8 resume through
+    ``main()`` and are held to phase 12's rule; then the evaluation CLI's ``main()`` scores step 12 (one GRU
     step a window), and the card's flows are held to the CPU's as in
     phase 15;
 19. EVFlowNet on 1-2 element samples (``--dynamic-sample-length``, padding
@@ -123,17 +125,19 @@ Phases:
     between reading, the device and writing, the skips and the set's size;
 21. dense training: ``train.main()`` with ``--ev_images`` on the baked
     shards, the recipe flags, ``-sp`` that checkpoint and
-    ``--representation-start 1.0``, 12 steps with checkpoints and raw
-    validation every 4: the train steps launch the fused warp 4 times each
-    way and no K1 or K2, which launch in the validation passes only; two
+    ``--representation-start 1.0``, 12 steps in windows of 4 replayed as
+    CUDA graphs with checkpoints and raw validation every 4: the train
+    steps launch the fused warp 4 times each way (and a step's worth
+    before the capture) and no K1 or K2, which launch in the validation
+    passes only; two
     resumes from checkpoint 8 held to phase 12's rule; its step and the
     reader's time a batch beside phase 14's; then one dense step through
     the kernels against the twins (the recipe at phase 6's tolerances, and
     fp32 through the fused warp at phase 5's), and 3 + 10 dense recipe
     steps timed and traced as phases 9-10;
-22. ``--ev_images`` over the raw set: 4 steps of ``run()`` with EVFlowNet's
-    ``compute_event_image`` on the host (its ms a sample), then
-    DummyFlowNet's;
+22. ``--ev_images`` over the raw set: 4 steps of ``run()``, one batch at a
+    time, with EVFlowNet's ``compute_event_image`` on the host (its ms a
+    sample), then DummyFlowNet's;
 23. the bare sharded step (``parallel.make_sharded_train_step``) on the
     first bench batch, golden and recipe: a one-rank NCCL group
     (``data:1``) equals the unsharded step bit for bit (loss, the
@@ -148,7 +152,8 @@ Phases:
     reduced a step on each axis;
 24. ``train.main(['--mesh', 'data:2', ...])`` over phase 14's shards: 12
     production-recipe steps on two spawned ranks sharing the card,
-    checkpoints and sharded validation every 4; rank 0 alone writes,
+    checkpoints and sharded validation every 4, ``--device-queue-window
+    4`` logged as not yet ported on a mesh; rank 0 alone writes,
     ``samples_passed`` counts global samples, two copies cut back to
     checkpoint 8 resume through ``main()`` held to phase 12's rule; then
     ``--mesh data:1,event:2`` 4 steps over the raw split (event rank 0
@@ -189,15 +194,36 @@ Phases:
     over phase 14's layout (its existence checks skip the simulator and
     the slicing; ``prepare_batches`` writes 96 samples), then
     ``run_accuracy_varied.sh`` with the production recipe at full width
-    for 8 steps, and again on the same directory to 12 with validation
-    every 4 steps: each training child launches K1 and K2 backward once
-    a step and the fused warp's backward 4 times (the second run 4
-    steps: it resumed at step 8), and the checkpoints kept are steps 0,
-    8 and 12; then ``eval_accuracy_varied.sh``: one pickle a kept
-    checkpoint for each matrix, finite, a row of ``aee_table`` for each,
-    and K1 and K2 forward alone in the evaluation children.
+    in windows of 4 for 8 steps, and again on the same directory to 12
+    with validation every 4 steps: each training child launches K1 and K2
+    backward once a step and the fused warp's backward 4 times, and a
+    step's worth before its graph's capture (the second run 4 steps: it
+    resumed at step 8), and the checkpoints kept are steps 0, 8 and 12;
+    then ``eval_accuracy_varied.sh``: one pickle a kept checkpoint for
+    each matrix, finite, a row of ``aee_table`` for each, and K1 and K2
+    forward alone in the evaluation children;
+29. the device queue (``data/device_queue.py``) at the bench shape: two
+    windows of 16 bench batches staged in one upload each, golden and
+    recipe (RANGER with the clip, the EMA and the representation group
+    starting inside the second window, deterministic cuDNN), as 32 eager
+    steps and as 2 replays of one CUDA graph captured over the 16-step
+    window: losses, parameters and the optimizer state equal bit for
+    bit; the launches of each way (a replay counts what its capture
+    recorded, and the profiler's kernels inside one replay must agree);
+    then each way's ms a step (in turns), device busy and ops, idle share,
+    host launches a step, peak memory, the capture's time;
+    ``validate_windowed`` against ``validate`` bit for bit and timed; a
+    ``run()`` of 32 steps in windows of 16 resumed from checkpoint 16
+    equals the uninterrupted run bit for bit; then ``train.main()`` with
+    the default windows (16 and 8) over phase 14's shards, 80 steps with
+    checkpoints and validation every 16: every window one replay, ms a
+    loop step against phase 14's one batch at a time.
 
-Every phase from 17 on prints its own seconds.  A phase that starts
+Every phase from 17 on prints its own seconds.  A window (phases 11, 18,
+21, 28, 29) runs as one CUDA graph replay where it covers whole
+optimizer steps and no hook is due inside it; the capture's warm-up
+step counts its launches, the capture none, and each replay what the
+capture recorded (``ops.count_launches``).  A phase that starts
 processes puts a time limit on them, and a rank that fails stops the
 others and fails the phase.  Prints the kernels as
 one JSON line (each with its time, the twin's, one PyTorch call's where
@@ -249,6 +275,7 @@ GAP_FACTOR = 4.0
 CONFIGS = {'golden': ('float32', 'highest'), 'recipe': ('bfloat16', 'bf16x2')}
 KERNEL_SOURCE = 'dvs_of_training_framework_tpu_torch/csrc/'
 LOOP_STEPS, LOOP_EVERY, SKIP_AT = 12, 4, 2
+LOOP_VAL = 2                   # phase 11's validation batches and window
 # phase 14: the synthetic benchmark's durations in seconds and its sample
 # count, cut from scripts/prep_accuracy_varied.sh's 60, 12, 12 and 16384
 SYNTH_CUTS = (('--train-secs', 2.0, 60.0), ('--eval-secs', 1.0, 12.0),
@@ -279,6 +306,19 @@ ACCURACY_LIMIT = 240           # seconds a script may take
 TRACE_KERNELS = ('voxelize_tile_kernel', 'voxelize_bwd_kernel',
                  'kernel_mlp_fwd_kernel', 'kernel_mlp_bwd_kernel',
                  'warp_fwd_kernel', 'warp_bwd_kernel')
+# each launch counter's kernel in a trace (K1's forward: its tile kernel)
+TRACE_KERNEL_OF = dict(zip(('voxelize_fwd', 'voxelize_bwd', 'kernel_mlp_fwd',
+                            'kernel_mlp_bwd', 'warp_fwd', 'warp_bwd'),
+                           TRACE_KERNELS))
+# phase 29: the device queue's default windows (utils/options.py), the
+# bare steps' optimizer with the production riders and the representation
+# group starting inside the second window, and main()'s steps
+WINDOW, VAL_WINDOW = 16, 8
+WINDOW_ARGS = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
+                              half_life=100000, num_warmup_steps=0,
+                              training_steps=40, rs=0.5, grad_clip_norm=1.0,
+                              ema_decay=0.999)
+WINDOW_MAIN_STEPS = 5 * WINDOW
 
 
 MLP_GRADS = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
@@ -789,6 +829,18 @@ class LoopClock:
         return [(starts[j] - starts[j - 1] - hooks.get(j, 0.0)) * 1e3
                 for j in range(first, len(starts))]
 
+    def window_ms(self, window):
+        """Host ms a step of fused windows of ``window`` steps (one
+        train_step span each): each window's interval to the next one's
+        start, less its hooks, over its steps, from the second interval
+        on (the first window holds the graph's capture)."""
+        return [v / window for v in self.step_ms(2)]
+
+    def window_read_ms(self, window):
+        """Host ms reading a batch of a window (``batch_construction`` of
+        each window after the first read, which stages two)."""
+        return [1e3 * v / window for v in self.reads[1:]]
+
     def hook_seconds(self, name, every):
         return [s for j, n, s in self.hook_spans
                 if n == name and j % every == 0]
@@ -871,7 +923,8 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
         '--ema-decay', '0.999', '-ne', str(LOOP_STEPS),
         '--checkpointing_interval', str(LOOP_EVERY), '-vp', str(LOOP_EVERY),
         '--permanent_interval', str(2 * LOOP_EVERY), '--num_checkpoints', '2',
-        '--event-capacity', str(capacity)])
+        '--validation-window', str(LOOP_VAL), '--event-capacity',
+        str(capacity)])
 
     # --- 11. the loop ------------------------------------------------------
     reset(counters)
@@ -915,9 +968,10 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
             f'step_{s}.ckpt' for s in want_steps):
         raise AssertionError(f'loop: checkpoints {steps} ({on_disk})')
 
-    # 12 steps and 5 validation passes of 2 batches: before, at 4, 8 and
-    # 12, and after
-    forwards = LOOP_STEPS + 5 * len(val)
+    # 12 steps (the default window of 16 is more than they are: one slot
+    # at a time) and 5 validation passes of one window of 2 batches:
+    # before, at 4, 8 and 12, and after, one forward before the capture
+    forwards = LOOP_STEPS + 5 * len(val) + 1
     expected = {'voxelize_fwd': forwards, 'voxelize_bwd': LOOP_STEPS,
                 'kernel_mlp_fwd': forwards, 'kernel_mlp_bwd': LOOP_STEPS,
                 'corner_values': 0, 'warp_fwd': 4 * forwards,
@@ -1121,7 +1175,8 @@ def data_phases(out, capacity, device, card, counters, loop_step_ms):
             '-ne', str(MAIN_STEPS), '--preprocessed-dataset-path',
             str(shards), '--checkpointing_interval', str(MAIN_EVERY),
             '--permanent_interval', str(MAIN_EVERY), '-vp', str(MAIN_EVERY),
-            '--event-capacity', str(capacity)] + RECIPE_FLAGS
+            '--event-capacity', str(capacity), '--device-queue-window',
+            '0'] + RECIPE_FLAGS
     clock = LoopClock()
     run_fn = cli.run
     # the host clock of phase 11, handed to the run() that main() calls
@@ -1581,6 +1636,7 @@ def sequence_phases(out, device, card, counters, bench_collated):
             str(MAIN_STEPS), '--preprocessed-dataset-path', str(shards),
             '--checkpointing_interval', str(every), '--permanent_interval',
             str(every), '-vp', str(every), '--event-capacity', 'auto',
+            '--device-queue-window', str(every),
             '--flownet_path', 'RecurrentFlowNet'] + pairs + RECIPE_FLAGS
     clock = LoopClock()
     run_fn = cli.run
@@ -1610,19 +1666,22 @@ def sequence_phases(out, device, card, counters, bench_collated):
           + '; validation ' + ' '.join(f'{v:.5f}' for v in val_losses)
           + f'; checkpoints {steps}; skipped batches {skipped:g}')
     print(f'  launches: {counts}')
-    fwd = counts['voxelize_fwd']
+    # windows of 4 replayed, and one step before the graph's capture
+    fwd, trained = counts['voxelize_fwd'], MAIN_STEPS + 1
     if (len(losses) != MAIN_STEPS or not val_losses
             or not np.isfinite(losses + val_losses).all()
             or steps != list(range(0, MAIN_STEPS + 1, every))
-            or counts['voxelize_bwd'] != MAIN_STEPS
-            or counts['warp_bwd'] != 4 * MAIN_STEPS
+            or len(clock.step_starts) != MAIN_STEPS // every
+            or counts['voxelize_bwd'] != trained
+            or counts['warp_bwd'] != 4 * trained
             or counts['kernel_mlp_fwd'] != fwd
-            or counts['warp_fwd'] != 4 * fwd or fwd <= MAIN_STEPS):
+            or counts['warp_fwd'] != 4 * fwd or fwd <= trained):
         raise AssertionError(f'[18] main(): losses {losses}, checkpoints '
                              f'{steps}, launches {counts}')
-    main_ms = clock.step_ms(WARMUP + 1)
-    print(f'  main() step {statistics.median(main_ms):.3f} ms (median of '
-          f'steps {WARMUP + 1}-{MAIN_STEPS - 1}, hooks excluded: '
+    main_ms = clock.window_ms(every)
+    print(f'  main() step {statistics.median(main_ms):.3f} ms (windows of '
+          f'{every} as graph replays: the intervals after the first window, '
+          'hooks excluded, over their steps: '
           + ' '.join(f'{v:.1f}' for v in main_ms) + f'); main() '
           f'{main_s:.2f} s in all; card: {card}')
     resume_against('[18]', out, run, argv, MAIN_STEPS, every)
@@ -1907,7 +1966,8 @@ def dense_phases(out, device, card, counters, raw_main):
             '--checkpointing_interval', str(every),
             '--permanent_interval', str(2 * every), '--num_checkpoints', '2',
             '-vp', str(every), '--event-capacity',
-            str(BAKE_CAPACITY)] + RECIPE_FLAGS
+            str(BAKE_CAPACITY), '--device-queue-window',
+            str(every)] + RECIPE_FLAGS
     clock = LoopClock(counters)
     run_fn = cli.run
     cli.run = lambda *a, **k: run_fn(*a, timers=clock, **k)
@@ -1935,24 +1995,27 @@ def dense_phases(out, device, card, counters, raw_main):
               f'{v:.5f}' for v in losses) + '; validation ' + ' '.join(
               f'{v:.5f}' for v in val_losses) + f'; checkpoints {steps}')
     print(f'  launches: {counts}; inside the train steps: {in_steps}')
-    forwards = counts['voxelize_fwd']
+    # windows of 4 replayed, and one step before the graph's capture
+    forwards, trained = counts['voxelize_fwd'], MAIN_STEPS + 1
     want_steps = {k: 0 for k in counts}
-    want_steps.update(warp_fwd=4 * MAIN_STEPS, warp_bwd=4 * MAIN_STEPS)
+    want_steps.update(warp_fwd=4 * trained, warp_bwd=4 * trained)
     if (len(losses) != MAIN_STEPS or len(val_losses) != 5
             or not np.isfinite(losses + val_losses).all()
             or steps != [0, 4, 8, 12] or in_steps != want_steps
+            or len(clock.step_starts) != MAIN_STEPS // every
             or forwards == 0 or counts['kernel_mlp_fwd'] != forwards
             or counts['voxelize_bwd'] or counts['kernel_mlp_bwd']
             or counts['corner_values']
-            or counts['warp_fwd'] != 4 * (MAIN_STEPS + forwards)
-            or counts['warp_bwd'] != 4 * MAIN_STEPS):
+            or counts['warp_fwd'] != 4 * (trained + forwards)
+            or counts['warp_bwd'] != 4 * trained):
         raise AssertionError(f'[21] main(): losses {losses}, checkpoints '
                              f'{steps}, launches {counts}, in steps '
                              f'{in_steps}')
-    main_ms = clock.step_ms(WARMUP + 1)
-    read_ms = statistics.median(clock.reads[WARMUP:MAIN_STEPS]) * 1e3
-    print(f'  dense main() step {statistics.median(main_ms):.3f} ms (median '
-          f'of steps {WARMUP + 1}-{MAIN_STEPS - 1}, hooks excluded: '
+    main_ms = clock.window_ms(every)
+    read_ms = statistics.median(clock.window_read_ms(every))
+    print(f'  dense main() step {statistics.median(main_ms):.3f} ms (windows '
+          f'of {every} as graph replays: the intervals after the first '
+          'window, hooks excluded, over their steps: '
           + ' '.join(f'{v:.1f}' for v in main_ms) + f'); reading a dense '
           f'batch {read_ms:.3f} ms (median); phase 14\'s raw main() step '
           f'{raw_main[0]:.3f} ms, reading a raw batch {raw_main[1]:.3f} ms; '
@@ -2009,13 +2072,16 @@ def dense_phases(out, device, card, counters, raw_main):
     for name, flags in (('host_images', []),
                         ('dummy_dense', ['--flownet_path', 'DummyFlowNet'])):
         path = out / name
+        # one batch at a time: the host makes each image, so a window of
+        # 16 staged two ahead would make 32 batches' for 4 steps
         args = choose_data_path(cli.parse_args(
             ['-m', str(path), '-d', device.type, '-bs', '8', '-mbs', '8',
              '-ne', '4', '--ev_images', '--skip-validation', '--height',
              str(H), '--width', str(W), '--num_workers', '0',
              '--checkpointing_interval', '4',
              '--permanent_interval', '4', '--event-capacity',
-             str(BAKE_CAPACITY)] + flags + RECIPE_FLAGS))
+             str(BAKE_CAPACITY), '--device-queue-window', '0']
+            + flags + RECIPE_FLAGS))
         image_fn = cli.make_event_image_fn(args)
         image_s = []
 
@@ -2252,7 +2318,8 @@ def check_run_dir(label, run, ranks, steps, batch):
 
 def check_rank_launches(label, ranks, steps):
     """Each rank's train steps ran K1 and K2 forward and backward and the
-    fused warp 4 times each way (validation adds forwards)."""
+    fused warp 4 times each way (validation adds forwards); ``steps``
+    counts a step run before a graph's capture too."""
     for r in ranks:
         n = r['launches']
         if (n['voxelize_bwd'] != steps or n['kernel_mlp_bwd'] != steps
@@ -2409,7 +2476,8 @@ def mesh_phases(out, collated, capacity, device, card):
             str(MESH_STEPS), '--preprocessed-dataset-path', str(shards),
             '--checkpointing_interval', str(every), '--permanent_interval',
             str(every), '-vp', str(every), '--event-capacity',
-            str(2 * capacity), '--mesh', 'data:2'] + RECIPE_FLAGS
+            str(2 * capacity), '--mesh', 'data:2', '--device-queue-window',
+            str(every)] + RECIPE_FLAGS
     before = launch_counts()
     t0 = time.perf_counter()
     ranks = cli.main(['-m', str(run)] + argv)
@@ -2962,8 +3030,10 @@ def accuracy_phase(out):
         raise AssertionError(f'[28] prep over phase 14\'s layout ran {ran}; '
                              f'shards {shard_times} then {now}')
 
+    # windows of 4, which divide the resume's step: graph replays
     recipe = ['--precision', 'bfloat16', '--loss-precision', 'bf16x2',
-              '--grad-clip-norm', '1.0']
+              '--grad-clip-norm', '1.0', '--device-queue-window',
+              str(ACCURACY_EVERY)]
     first, last = ACCURACY_STEPS
     script(f'run to {first}', 'run_accuracy_varied.sh', [run, *recipe],
            STEPS=str(first))
@@ -2979,9 +3049,10 @@ def accuracy_phase(out):
     for label, steps in ((f'run to {first}', first),
                          (f'run to {last}', last - first)):
         child, = children[label]
+        # and one step before the graph's capture
         train_launches.append(check_rank_launches(
             f'[28] {label}', [{'rank': 0, 'launches': child['launches']}],
-            steps))
+            steps + 1))
     print(f'  checkpoints {kept}; K1, K2 and the fused warp in both '
           f'training children, the second resumed at step {first}: '
           f'{train_launches}')
@@ -3025,6 +3096,375 @@ def accuracy_phase(out):
     return launches, {'seconds': seconds, 'checkpoints': kept,
                       'train_launches': train_launches,
                       'eval_launches': evaluated, 'rows': rows}
+
+
+class ListLog:
+    """A SummaryWriter that keeps its scalars in a list."""
+
+    def __init__(self):
+        self.scalars = []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def host_launches(events):
+    """CUDA runtime calls that put work on the card (kernel and graph
+    launches, copies, memsets) among the profiler's host events."""
+    names = ('cudaLaunchKernel', 'cuLaunchKernel', 'cudaGraphLaunch',
+             'cudaMemcpyAsync', 'cudaMemsetAsync')
+    return sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith(names))
+
+
+def window_runs(step, state, windows, rounds):
+    """``rounds`` windows through ``step(state, window) -> list of loss
+    tensors``; returns the host seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(rounds):
+        step(state, windows[i % len(windows)])
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def window_phase(out, collated, capacity, device, card, counters, shapes):
+    """Phase 29: the device queue's windows at the bench shape, each window
+    of WINDOW training steps as eager steps and as one CUDA graph replay,
+    golden and recipe, then windowed validation and a windowed resume
+    through ``run()``; returns the launch counts of the recipe's graph
+    run and the phase's numbers."""
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.data.device_queue import \
+        stack_batches
+    from dvs_of_training_framework_tpu_torch.losses import (LOSS_PRECISIONS,
+                                                            MultiScaleLoss)
+    from dvs_of_training_framework_tpu_torch.training import (
+        construct_optimizer, create_train_state, make_eval_step,
+        make_fused_eval_step, make_fused_window_step, make_train_step)
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+    from dvs_of_training_framework_tpu_torch.training.train import (
+        validate, validate_windowed)
+    from dvs_of_training_framework_tpu_torch.utils.tb import SummaryWriter
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    K = WINDOW
+    host = [pad_batch(c, capacity) for c in collated]
+    windows = [stack_batches([host[(w * K + i) % len(host)]
+                              for i in range(K)], pin=True).to(device)
+               for w in range(2)]
+    print(f'[29] the device queue at the bench shape: windows of {K} bench '
+          f'batches ({windows[0].storage.numel() / 2 ** 20:.1f} MiB each, '
+          f'one upload), RANGER with the clip and the EMA, the '
+          f'representation group from step {WINDOW_ARGS.training_steps // 2}'
+          f', cudnn.deterministic; card: {card}')
+    numbers, launches = {}, None
+    for config in ('golden', 'recipe'):
+        evaluator = MultiScaleLoss(
+            shapes, bf16x2=LOSS_PRECISIONS[CONFIGS[config][1]])
+        runs = {}
+        for mode in ('eager', 'graph'):
+            model = bench_model(config, device)
+            optimizer = construct_optimizer(WINDOW_ARGS, model)
+            state = create_train_state()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset(counters)
+            if mode == 'eager':
+                one = make_train_step(model, evaluator, optimizer,
+                                      LOSS_WEIGHTS, 1, window=K)
+
+                def step(st, window, one=one):
+                    return [one(st, window)[1][0] for _ in range(K)]
+                losses = [v for w in windows for v in step(state, w)]
+                first_s, graph = None, None
+            else:
+                fused = make_fused_window_step(model, evaluator, optimizer,
+                                               LOSS_WEIGHTS, 1, K)
+
+                def step(st, window, fused=fused):
+                    return [fused(st, window)[1][0]]
+                t0 = time.perf_counter()
+                losses = step(state, windows[0])
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                losses += step(state, windows[1])
+                graph, = fused.graphs.values()
+            torch.cuda.synchronize()
+            counts = read_counts(counters)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            runs[mode] = SimpleNamespace(
+                model=model, optimizer=optimizer, state=state, step=step,
+                graph=graph, first_s=first_s, peak=peak, counts=counts,
+                losses=torch.cat([v.reshape(-1) for v in losses]).cpu(),
+                params=clone_tree(model.state_dict()),
+                opt=flat_state(clone_tree(optimizer.state_dict())))
+        eager, graph = runs['eager'], runs['graph']
+        bad = [k for k in eager.params
+               if not bits_equal(graph.params[k], eager.params[k])]
+        bad += [k for k in eager.opt
+                if not bits_equal(graph.opt[k], eager.opt[k])]
+        n_equal = int((graph.losses.view(torch.int32)
+                       == eager.losses.view(torch.int32)).sum())
+        print(f'[29] {config}: {2 * K} steps as {2 * K} eager steps and as '
+              f'2 replays of one captured graph: {n_equal}/{2 * K} losses, '
+              f'{len(eager.params) - len([k for k in bad if k in eager.params])}'
+              f'/{len(eager.params)} parameters and the optimizer state '
+              f'({len(eager.opt)} entries: moments, slow weights, EMA, '
+              f'counts) equal bit for bit; losses '
+              + ' '.join(f'{v:.5f}' for v in graph.losses.tolist()[:4])
+              + ' ..')
+        if bad or n_equal != 2 * K or graph.state.step != 2 * K:
+            raise AssertionError(f'[29] {config}: the graph replay differs '
+                                 f'from the eager steps: {bad[:5]}, '
+                                 f'{n_equal} losses equal')
+        # the graph run: one warm-up step before the capture, then two
+        # windows; a replay counts what the capture recorded
+        want = {k: n + n // (2 * K) for k, n in eager.counts.items()}
+        print(f'  launches: eager {eager.counts}; graph {graph.counts} (the '
+              'capture\'s warm-up step, then each replay counts what the '
+              f'capture recorded: {graph.graph.launches})')
+        if graph.counts != want or not all(
+                graph.graph.launches[k] == n // 2
+                for k, n in eager.counts.items()):
+            raise AssertionError(f'[29] {config}: graph launches '
+                                 f'{graph.counts}, expected {want}')
+        if config == 'recipe':
+            launches = graph.counts
+
+        # ms a step each way, in turns, on the windows already staged
+        seconds = {'eager': [], 'graph': []}
+        for mode in ('eager', 'graph', 'eager', 'graph'):
+            r = runs[mode]
+            rounds = 2 if mode == 'eager' else 4
+            seconds[mode].append(window_runs(r.step, r.state, windows,
+                                             rounds) / (rounds * K))
+        ms = {m: 1e3 * statistics.mean(v) for m, v in seconds.items()}
+        # one window traced each way; the graph's up to three times, until
+        # the trace holds every kernel the counters say a replay launches:
+        # the profiler can drop a device event of a graph (one of 16 K2
+        # forwards in every try of one run)
+        traced = {}
+        g = runs['graph'].graph
+        for mode, tries in (('eager', 1), ('graph', 3)):
+            r = runs[mode]
+            for _ in range(tries):
+                with profile() as prof:
+                    r.step(r.state, windows[0])
+                    torch.cuda.synchronize()
+                events = prof.key_averages()
+                ops = device_ops(events)
+                kernels = {k: sum(e.count for e in ops if name in e.key)
+                           for k, name in TRACE_KERNEL_OF.items()}
+                if all(kernels[k] == g.launches[k] for k in kernels):
+                    break
+            traced[mode] = SimpleNamespace(
+                busy=sum(e.device_time_total for e in ops) / 1e3 / K,
+                ops=sum(e.count for e in ops) / K,
+                host=host_launches(events) / K, kernels=kernels)
+        print(f'[29] {config} step, eager against one graph replay a window '
+              f'of {K} (staged windows, timed in turns, eager 2 + 2 windows, '
+              f'graph 4 + 4):')
+        for mode in ('eager', 'graph'):
+            t = traced[mode]
+            idle = 100 * (1 - t.busy / ms[mode]) if t.busy else float('nan')
+            print(f'  {mode}: {ms[mode]:.3f} ms a step; device busy '
+                  f'{t.busy:.3f} ms a step in {t.ops:g} device ops, '
+                  f'{idle:.1f}% idle; {t.host:g} host launches a step '
+                  f'(kernel and graph launches, copies, memsets); peak memory '
+                  f'{runs[mode].peak:.3f} GiB; card: {card}')
+        print(f'  graph: warm-up and capture {runs["graph"].first_s:.2f} s '
+              f'with the first replay (capture alone {g.capture_s:.2f} s), '
+              f'{g.replays} replays')
+        inside = traced['graph'].kernels
+        if sum(inside.values()):
+            print('  kernels inside one replay, by the profiler: '
+                  + ', '.join(f'{k} {n}' for k, n in inside.items())
+                  + f'; by the launch counters: {g.launches}')
+            # every kernel the replay launches shows in its trace, none
+            # more often than the counters say
+            if any(not 0 < inside[k] <= g.launches[k] if g.launches[k]
+                   else inside[k] for k in inside):
+                raise AssertionError(f'[29] {config}: the profiler sees '
+                                     f'{inside} in a replay, the counters '
+                                     f'{g.launches}')
+        else:
+            print('  the profiler shows no kernel inside a replay: the '
+                  f'launch counters stand for it, {g.launches}')
+        numbers[config] = {
+            'ms': ms, 'busy_ms': {m: traced[m].busy for m in traced},
+            'device_ops': {m: traced[m].ops for m in traced},
+            'host_launches': {m: traced[m].host for m in traced},
+            'peak_gib': {m: runs[m].peak for m in runs},
+            'capture_s': g.capture_s, 'first_call_s': runs['graph'].first_s,
+            'replay_kernels': inside}
+
+        # --- validation: one window of the first 8 batches, then 2 + 6
+        # repeats; against one batch at a time, on the trained weights
+        if config == 'recipe':
+            model = runs['graph'].model
+            val = collated[:10]
+            logs = {'windowed': ListLog(), 'per batch': ListLog()}
+            tags = cli.shapes2tags(shapes)
+            fused_eval = make_fused_eval_step(model, evaluator, LOSS_WEIGHTS,
+                                              VAL_WINDOW)
+            t0 = time.perf_counter()
+            got = validate_windowed(fused_eval, val, 0, logs['windowed'],
+                                    tags, VAL_WINDOW, device,
+                                    event_capacity=capacity)
+            first_s = time.perf_counter() - t0
+            times = {}
+            for mode in ('per batch', 'windowed', 'per batch', 'windowed'):
+                t0 = time.perf_counter()
+                if mode == 'windowed':
+                    validate_windowed(fused_eval, val, 0, ListLog(), tags,
+                                      VAL_WINDOW, device,
+                                      event_capacity=capacity)
+                else:
+                    want = validate(make_eval_step(model, evaluator,
+                                                   LOSS_WEIGHTS),
+                                    val, 0, logs['per batch'], tags, device,
+                                    event_capacity=capacity)
+                times.setdefault(mode, []).append(time.perf_counter() - t0)
+            if got != want or logs['windowed'].scalars != \
+                    logs['per batch'].scalars[:len(logs['windowed'].scalars)]:
+                raise AssertionError(f'[29] validate_windowed {got!r} against '
+                                     f'validate {want!r}')
+            print(f'[29] validate_windowed ({len(val)} bench batches, windows '
+                  f'of {VAL_WINDOW}) equals validate bit for bit: loss '
+                  f'{got:.7f} and {len(logs["windowed"].scalars)} scalars; '
+                  f'{statistics.mean(times["windowed"]):.3f} s a pass '
+                  f'against {statistics.mean(times["per batch"]):.3f} s (the '
+                  f'first windowed pass, with its captures, {first_s:.2f} s); '
+                  f'card: {card}')
+            numbers['validation_s'] = {m: statistics.mean(v)
+                                       for m, v in times.items()}
+        for r in runs.values():
+            del r.model, r.optimizer, r.state, r.step, r.graph
+        del runs
+        torch.cuda.empty_cache()
+
+    # --- the windowed resume through run(): 2 windows of 16, checkpoints
+    # and validation at each; a copy cut back to the first resumes
+    B = collated[0]['size']
+
+    def stream(samples_passed):
+        i = samples_passed // B
+        while True:
+            yield collated[i % len(collated)]
+            i += 1
+
+    steps = 2 * K
+    run_dir = out / 'window_run'
+    run_dir.mkdir()
+
+    def run_args(path):
+        return cli.parse_args(
+            ['-m', str(path), '-d', 'cuda', '--height', '256', '--width',
+             '256', '-bs', str(B), '-mbs', str(B), '-ne', str(steps),
+             '--checkpointing_interval', str(K), '-vp', str(K),
+             '--permanent_interval', str(K), '--validation-window', '2',
+             '--event-capacity', str(capacity)] + RECIPE_FLAGS)
+
+    t0 = time.perf_counter()
+    cli.run(run_args(run_dir), stream, lambda: collated[:2],
+            SummaryWriter(run_dir / 'log'))
+    run_s = time.perf_counter() - t0
+    copy_dir = out / 'window_run_resumed'
+    shutil.copytree(run_dir, copy_dir)
+    (copy_dir / f'step_{steps}.ckpt').unlink()
+    cli.run(run_args(copy_dir), stream, lambda: collated[:2],
+            SummaryWriter(copy_dir / 'log'))
+    whole, resumed = (flat_state({k: Serializer(d).read_state_dict(steps)[k]
+                                  for k in ('model', 'optimizer')})
+                      for d in (run_dir, copy_dir))
+    bad = [k for k in whole if k not in resumed
+           or not bits_equal(resumed[k], whole[k])]
+    print(f'[29] run() with --device-queue-window {K}: {steps} recipe steps '
+          f'({run_s:.2f} s), checkpoints and validation every {K}; a copy '
+          f'cut back to step {K} resumes to {steps}: {len(whole) - len(bad)}'
+          f'/{len(whole)} entries of the checkpoint (model, optimizer, '
+          'counts) equal the uninterrupted run\'s bit for bit')
+    if bad or resumed.keys() != whole.keys():
+        raise AssertionError(f'[29] windowed resume differs: {bad[:5]}')
+    print(f'[29] {time.perf_counter() - t_phase:.2f} s')
+    return launches, numbers
+
+
+def window_main_phase(out, capacity, device, card, counters, main_ms):
+    """Phase 29's end: ``train.main()`` with the default windows over
+    phase 14's shards, WINDOW_MAIN_STEPS steps with checkpoints and
+    validation every WINDOW steps; ms a loop step against phase 14's
+    ``main()``; returns the launch counts and the numbers."""
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+    t_phase = time.perf_counter()
+    run = out / 'run_windows'
+    argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
+            '-ne', str(WINDOW_MAIN_STEPS), '--preprocessed-dataset-path',
+            str(out / 'shards'), '--checkpointing_interval', str(WINDOW),
+            '--permanent_interval', str(WINDOW), '-vp', str(WINDOW),
+            '--event-capacity', str(capacity)] + RECIPE_FLAGS
+    clock = LoopClock()
+    run_fn = cli.run
+    cli.run = lambda *a, **k: run_fn(*a, timers=clock, **k)
+    reset(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+    finally:
+        cli.run = run_fn
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = read_counts(counters)
+    scalars = read_scalars(run / 'log')
+    losses = scalars.get('General/Train loss', [])
+    steps = Serializer(run).list_known_steps()
+    windows = len(clock.step_starts)
+    # a fused window is one train_step span: its interval to the next
+    # window's start, less the hooks, over WINDOW steps; the first window
+    # holds the capture
+    window_ms = [v / WINDOW for v in clock.step_ms(2)]
+    skipped = scalars.get('General/skipped batches', [0.0])[-1]
+    print(f'[29] train.main() with the default windows (--device-queue-window '
+          f'{WINDOW}, --validation-window {VAL_WINDOW}) over phase 14\'s '
+          f'shards, {WINDOW_MAIN_STEPS} recipe steps, checkpoints and '
+          f'validation every {WINDOW}: {windows} train-step calls, losses '
+          f'{losses[0]:.5f} .. {losses[-1]:.5f}, checkpoints {steps}, '
+          f'skipped batches {skipped:g}; launches {counts}')
+    if (len(losses) != WINDOW_MAIN_STEPS or not np.isfinite(losses).all()
+            or steps != list(range(0, WINDOW_MAIN_STEPS + 1, WINDOW))):
+        raise AssertionError(f'[29] main(): losses {losses}, checkpoints '
+                             f'{steps}')
+    # every window fused: one train-step call each, and one warm-up step
+    # before the capture
+    if (windows != WINDOW_MAIN_STEPS // WINDOW
+            or counts['voxelize_bwd'] != WINDOW_MAIN_STEPS + 1):
+        raise AssertionError(f'[29] main(): {windows} train-step calls for '
+                             f'{WINDOW_MAIN_STEPS // WINDOW} windows, '
+                             f'launches {counts}')
+    print(f'  main() loop step {statistics.median(window_ms):.3f} ms (median '
+          'over the windows after the first, each window\'s interval less '
+          'its hooks over its steps: ' + ' '.join(f'{v:.1f}' for v in
+                                                   window_ms)
+          + f'); phase 14\'s main() step one batch at a time '
+          f'{main_ms:.3f} ms; main() {main_s:.2f} s in all; card: {card}')
+    print(f'[29] main() {time.perf_counter() - t_phase:.2f} s')
+    return counts, {'main_ms': statistics.median(window_ms),
+                    'main_window_ms': window_ms, 'phase14_main_ms': main_ms}
 
 
 def main():
@@ -3487,18 +3927,28 @@ def main():
         # --- 28. the accuracy scripts over phase 14's layout -------------
         launches['accuracy'], accuracy = accuracy_phase(Path(out))
 
+        # --- 29. the device queue: windows as CUDA graph replays, then
+        # main() with the default windows over phase 14's shards ----------
+        launches['window'], window = window_phase(
+            Path(out), collated, capacity, device, card, counters, shapes)
+        launches['window_main'], numbers = window_main_phase(
+            Path(out), capacity, device, card, counters, raw_main[0])
+        window.update(numbers)
+
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
     # dense main() and its bare step, the host-image run()s, the ranks'
     # sharded steps, the spawned meshes' main() and the multi-host main(),
-    # the visualize CLI's EVFlowNet and RecurrentFlowNet runs, and the
-    # accuracy scripts' training and evaluation children
+    # the visualize CLI's EVFlowNet and RecurrentFlowNet runs, the
+    # accuracy scripts' training and evaluation children, and the recipe's
+    # window steps as graph replays and main() with the default windows
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
              'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
-             'hosts_main', 'visualize', 'recurrent_visualize', 'accuracy')
+             'hosts_main', 'visualize', 'recurrent_visualize', 'accuracy',
+             'window', 'window_main')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -3515,6 +3965,7 @@ def main():
     print(json.dumps({'mesh': mesh}))
     print(json.dumps({'visualize': vis}))
     print(json.dumps({'accuracy': accuracy}))
+    print(json.dumps({'window': window}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

@@ -9,7 +9,9 @@ device; ``.to(device)`` moves a host batch over, and ``.pin_memory()``
 first copies it into page-locked host memory, from which that copy can
 run asynchronously.
 Padding rows carry ``sample_index = batch_size``, one past the last
-sample.
+sample.  A window of K batches stacked on a leading axis
+(``data/device_queue.py``) gives batch ``k`` back through
+``slice_window_batch``.
 """
 import dataclasses
 
@@ -106,6 +108,23 @@ class Batch:
             timestamps=_pin(self.timestamps),
             sample_idx=_pin(self.sample_idx),
             images=_pin(self.images), size=self.size)
+
+
+def slice_window_batch(batch: Batch, idx: int) -> Batch:
+    """Batch ``idx`` of a window-stacked Batch (a leading K axis on every
+    array, ``num_events`` one count a batch): views, no copy."""
+    events = batch.events
+    if events is not None:
+        events = EventBuffer(num_events=events.num_events[idx], **{
+            f.name: getattr(events, f.name)[idx]
+            for f in dataclasses.fields(EventBuffer)
+            if f.name != 'num_events'})
+    return Batch(events=events,
+                 data=None if batch.data is None else batch.data[idx],
+                 timestamps=batch.timestamps[idx],
+                 sample_idx=batch.sample_idx[idx],
+                 images=batch.images[idx],
+                 size=batch.size)
 
 
 def round_up_to_bucket(n: int, buckets) -> int:

@@ -22,10 +22,15 @@ def segment_starts(segment_ids: torch.Tensor,
     n = segment_ids.shape[0]
     device = segment_ids.device
     positions = torch.arange(n, dtype=torch.int32, device=device)
-    keep = segment_ids < num_segments
-    starts = torch.full((num_segments,), n, dtype=torch.int32, device=device)
-    return starts.scatter_reduce(0, segment_ids[keep].long(), positions[keep],
-                                 reduce='amin')
+    # padding goes to one spare slot, dropped after: no boolean mask, so
+    # no shape that depends on the data and no sync (a CUDA graph
+    # captures it)
+    ids = torch.where(segment_ids < num_segments, segment_ids,
+                      num_segments).long()
+    starts = torch.full((num_segments + 1,), n, dtype=torch.int32,
+                        device=device)
+    return starts.scatter_reduce(0, ids, positions,
+                                 reduce='amin')[:num_segments]
 
 
 def get_local_idx(segment_ids: torch.Tensor, num_segments: int):

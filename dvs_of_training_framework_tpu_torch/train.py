@@ -24,6 +24,17 @@ repeats the uninterrupted one.  The device defaults to ``cuda``; ``-d
 cuda`` without a card raises.  The TPU-only flags are accepted and
 ignored with one line each.
 
+On one device the batches go through the device queue
+(``--device-queue-window K``, 16 by default, 0 for one batch at a time):
+K batches staged in one upload, and every window that covers whole
+optimizer steps with no checkpoint or validation due inside it runs as
+one call, a replay of one CUDA graph on a card.  Validation stages
+``--validation-window`` batches a call (8 by default, 0 for one at a
+time).  A resumed run starts a new window at its checkpoint, so a window
+that divides the checkpoint and validation cadence keeps every window
+whole.  On a mesh the windows are not ported yet: it runs per step and
+says so in one line.
+
 Several devices, one process each (``parallel/``):
 
 - ``--mesh data:D[,event:E]`` alone: ``main`` builds the kernels, then
@@ -63,6 +74,7 @@ from .parallel import (MeshGroups, ShardedBatchSkipper, broadcast_batches,
 from .parallel.distributed import free_port
 from .training import (construct_optimizer, create_train_state,
                        current_learning_rates, make_eval_step,
+                       make_fused_eval_step, make_fused_window_step,
                        make_train_step)
 from .training.hooks import SerializationHook, ValidationHook
 from .training.serializer import Serializer
@@ -78,8 +90,7 @@ from .utils.tb import NullSummaryWriter, SummaryWriter
 from .utils.timer import FakeTimer, SynchronizedWallClockTimer
 
 # TPU and tunnel workarounds the port leaves out (ROADMAP "Not to port")
-TPU_ONLY = ('wire_timestamps', 'wire_events', 'wire_data',
-            'device_queue_window', 'validation_window', 'split_decoder',
+TPU_ONLY = ('wire_timestamps', 'wire_events', 'wire_data', 'split_decoder',
             'flat_optimizer')
 
 
@@ -97,6 +108,14 @@ def parse_args(argv):
     args = validate_train_args(args)
     args.log_path = args.model / 'log'
     mesh = mesh_of(args)
+    for dest in ('device_queue_window', 'validation_window'):
+        if getattr(args, dest) < 0:
+            raise ValueError(f'--{dest.replace("_", "-")} must be 0 or more')
+    if mesh is not None and (args.device_queue_window
+                             or args.validation_window):
+        print(f'--device-queue-window {args.device_queue_window}, '
+              f'--validation-window {args.validation_window}: not yet '
+              'ported on a mesh, runs per step')
     if mesh is not None:
         if args.mbs % mesh.data:
             raise ValueError(f'-mbs {args.mbs} is not divisible by the '
@@ -223,10 +242,21 @@ def run(args, train_loader_factory, val_loader_factory, logger,
     # dense training (--ev_images) validates raw, as the JAX package does
     prepare_batch = val_prepare_batch = None
     eval_step = make_eval_step(model, evaluator, args.loss_weights)
+    # the device queue, on one device only
+    window = args.device_queue_window if groups is None else 0
+    val_window = args.validation_window if groups is None else 0
+    train_step_fused = fused_eval_step = None
     if groups is None:
         train_step = make_train_step(model, evaluator, optimizer,
                                      args.loss_weights, args.accum_step,
-                                     is_raw=args.is_raw)
+                                     is_raw=args.is_raw, window=window)
+        if window > 0 and window % args.accum_step == 0:
+            train_step_fused = make_fused_window_step(
+                model, evaluator, optimizer, args.loss_weights,
+                args.accum_step, window, is_raw=args.is_raw)
+        if val_window > 0 and not args.skip_validation:
+            fused_eval_step = make_fused_eval_step(
+                model, evaluator, args.loss_weights, val_window)
     else:
         train_step = make_sharded_train_step(
             model, evaluator, optimizer, args.loss_weights, args.accum_step,
@@ -267,7 +297,8 @@ def run(args, train_loader_factory, val_loader_factory, logger,
             eval_step, val_loader_factory, logger, tags, device,
             event_capacity=args.event_capacity,
             sequence_length=sequence_length,
-            prepare_batch=val_prepare_batch)
+            prepare_batch=val_prepare_batch,
+            fused_eval_step=fused_eval_step, window=val_window)
         periods['validation'] = args.vp
 
     # every rank decides before rank 0 can write step 0
@@ -314,7 +345,9 @@ def run(args, train_loader_factory, val_loader_factory, logger,
             sequence_length=sequence_length,
             is_raw=args.is_raw,
             prepare_batch=prepare_batch,
-            samples_scale=1 if groups is None else groups.mesh.data)
+            samples_scale=1 if groups is None else groups.mesh.data,
+            window=window,
+            train_step_fused=train_step_fused)
 
     if groups is not None:
         check_replicas(model, groups, 'after training')

@@ -7,7 +7,7 @@ so the hooks read them directly.
 """
 import copy
 
-from .train import validate
+from .train import validate, validate_windowed
 
 
 class SerializationHook:
@@ -38,7 +38,7 @@ class ValidationHook:
 
     def __init__(self, eval_step, loader_factory, logger, tags, device,
                  event_capacity=2 ** 18, sequence_length=None,
-                 prepare_batch=None):
+                 prepare_batch=None, fused_eval_step=None, window: int = 0):
         """
         Args:
             eval_step: ``batch -> (loss, terms)`` (``state.make_eval_step``).
@@ -52,6 +52,10 @@ class ValidationHook:
             prepare_batch: optional mesh-side batch preparation for a
                 SHARDED eval_step (``parallel.make_sharded_eval_step``):
                 validation then runs on every rank, each on its shard.
+            fused_eval_step: optional windowed eval step
+                (``state.make_fused_eval_step``); with ``window > 0`` the
+                pass runs through the device queue, K batches a call
+                (``train.validate_windowed``), with the same scalars.
         """
         self.prepare_batch = prepare_batch
         self.eval_step = eval_step
@@ -61,8 +65,17 @@ class ValidationHook:
         self.device = device
         self.event_capacity = event_capacity
         self.sequence_length = sequence_length
+        self.fused_eval_step = fused_eval_step
+        self.window = window
 
     def __call__(self, steps: int, samples: int):
+        if self.fused_eval_step is not None and self.window > 0:
+            validate_windowed(self.fused_eval_step, self.loader_factory(),
+                              samples, self.logger, self.tags, self.window,
+                              self.device,
+                              event_capacity=self.event_capacity,
+                              sequence_length=self.sequence_length)
+            return
         validate(self.eval_step, self.loader_factory(), samples, self.logger,
                  self.tags, self.device, event_capacity=self.event_capacity,
                  sequence_length=self.sequence_length,

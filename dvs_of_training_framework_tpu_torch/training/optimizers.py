@@ -35,8 +35,15 @@ The optimizer's state (counts, moments, Lookahead slow weights and the
 EMA) is keyed by parameter name in ``state_dict()``, so a checkpoint
 restores it exactly with ``load_state_dict()``.
 
-The per-step scalars (bias corrections, rectification, learning rate) are
-computed on the host in float32, so a step needs no device sync.
+The per-step scalars (learning rate, bias corrections, RAdam's
+rectification and whether Lookahead syncs) are computed on the host in
+float32 from the host's update count, as one row of six a group
+(``SCALARS``), and reach the update as a tensor on the parameters'
+device; the update selects with ``torch.where``, never a Python branch.
+So a step needs no device sync, and a captured CUDA graph of K updates
+(``training/state.py``) replays with the next K rows copied into its
+table: ``Optimizer.step`` uploads one row and calls ``apply``, the op
+sequence that the graph captures.
 """
 import numpy as np
 import torch
@@ -74,8 +81,8 @@ def make_lr_schedule(lr, num_warmup_steps, half_life, delay_steps=0,
 
 
 def _radam_scalars(count):
-    """(1 / (1 - b1^t), 1 / (1 - b2^t), r or None) after ``count`` updates,
-    in float32; r is None below the variance-tractability threshold."""
+    """(1 - b1^t, 1 - b2^t, r or None) after ``count`` updates, in
+    float32; r is None below the variance-tractability threshold."""
     f = np.float32
     t = f(count)
     b1t = f(B1) ** t
@@ -87,6 +94,10 @@ def _radam_scalars(count):
         r = float(np.sqrt((ro - f(4)) * (ro - f(2)) * ro_inf
                           / ((ro_inf - f(4)) * (ro_inf - f(2)) * ro)))
     return float(f(1) - b1t), float(f(1) - b2t), r
+
+
+# one group's per-update scalars, in this order, in a row of float32
+SCALARS = ('lr', 'bc1', 'bc2', 'r', 'rectified', 'sync')
 
 
 def _copy_into(name, targets, saved):
@@ -161,12 +172,24 @@ class ParamGroup:
         dims = [d for d in range(g.dim()) if d != axis]
         return g - g.mean(dim=dims, keepdim=True)
 
+    def scalars(self, count: int) -> list:
+        """``SCALARS`` of the update that follows ``count`` updates: the
+        learning rate at ``count``, the bias corrections and RAdam's ``r``
+        after the update (0 and not rectified below the threshold), and
+        whether Lookahead syncs after it."""
+        bc1, bc2, r = _radam_scalars(count + 1)
+        sync = self.ranger and (count + 1) % SYNC_PERIOD == 0
+        return [self.schedule(count), bc1, bc2, 0.0 if r is None else r,
+                float(r is not None), float(sync)]
+
     @torch.no_grad()
-    def update(self, grads):
-        lr = self.schedule(self.count)
-        self.count += 1
-        bc1, bc2, r = _radam_scalars(self.count)
-        sync = self.ranger and self.count % SYNC_PERIOD == 0
+    def apply(self, grads, scalars):
+        """One update of the parameters and the state in place, with this
+        update's ``SCALARS`` as a float32 tensor ``[6]`` on the
+        parameters' device.  Reads nothing on the host, so a CUDA graph
+        can capture it; ``count`` is the caller's to advance."""
+        lr, bc1, bc2, r, rectified, sync = scalars.unbind()
+        rectified, sync = rectified > 0, sync > 0
         for i, (p, g) in enumerate(zip(self.params, grads)):
             g = self._centralize(g, self.output_axes[i])
             mu, nu = self.mu[i], self.nu[i]
@@ -176,16 +199,26 @@ class ParamGroup:
             if self.nu_max is not None:              # AMSGrad
                 torch.maximum(self.nu_max[i], nu / bc2, out=self.nu_max[i])
                 u = mu_hat / (self.nu_max[i].sqrt() + EPS)
-            elif r is None:
-                u = mu_hat
             else:
-                u = r * mu_hat / ((nu / bc2).sqrt_() + EPS)
+                u = torch.where(rectified,
+                                r * mu_hat / ((nu / bc2).sqrt_() + EPS),
+                                mu_hat)
             u = u + self.weight_decay * p
-            p.add_(u, alpha=-lr)
-            if sync:
+            p.sub_(u * lr)
+            if self.ranger:
                 slow = self.slow[i]
-                slow.add_(p - slow, alpha=SLOW_STEP)
-                p.copy_(slow)
+                moved = slow.add(p - slow, alpha=SLOW_STEP)
+                slow.copy_(torch.where(sync, moved, slow))
+                p.copy_(torch.where(sync, moved, p))
+
+
+def _upload(rows, device) -> torch.Tensor:
+    """Rows of scalars as a float32 tensor on ``device``: from pinned
+    memory without blocking the host where the device is a card."""
+    table = torch.tensor(rows, dtype=torch.float32)
+    if device.type != 'cuda':
+        return table
+    return table.pin_memory().to(device, non_blocking=True)
 
 
 class Optimizer:
@@ -215,14 +248,44 @@ class Optimizer:
         return {name: torch.where(keep, g, g / norm * self.clip_norm)
                 for name, g in grads.items()}
 
-    def step(self, grads):
-        """Apply one update; ``grads`` maps parameter names to gradients."""
+    def scalar_table(self, updates: int, device) -> torch.Tensor:
+        """The ``SCALARS`` of the next ``updates`` updates of every group
+        from the host's counts, float32 ``[updates, groups, 6]`` on
+        ``device`` (one copy)."""
+        return _upload([[group.scalars(group.count + j)
+                         for group in self.groups.values()]
+                        for j in range(updates)], device)
+
+    def advance(self, updates: int):
+        """Count ``updates`` updates that ``apply`` made on every group."""
+        for group in self.groups.values():
+            group.count += updates
+
+    def apply(self, grads, scalars):
+        """One update from ``grads`` (parameter names to gradients) with
+        the groups' scalars ``[groups, 6]`` on the device: the clip, every
+        group, the EMA.  Touches no host state."""
         if self.clip_norm > 0.0:
             grads = self.clip(grads)
-        for group in self.groups.values():
-            group.update([grads[name] for name in group.names])
+        for row, group in zip(scalars, self.groups.values()):
+            group.apply([grads[name] for name in group.names], row)
         if self.ema is not None:
             self._update_ema()
+
+    def step(self, grads):
+        """Apply one update; ``grads`` maps parameter names to gradients.
+        The scalars of the next count go up as one row of ``scalar_table``."""
+        device = next(iter(self.groups.values())).params[0].device
+        self.apply(grads, self.scalar_table(1, device)[0])
+        self.advance(1)
+
+    def tensors(self) -> list:
+        """Every tensor of the state that ``apply`` writes besides the
+        parameters: the moments, the slow weights and the EMA."""
+        out = [t for group in self.groups.values()
+               for key in ('mu', 'nu', 'nu_max', 'slow')
+               for t in (getattr(group, key) or ())]
+        return out + list((self.ema or {}).values())
 
     @torch.no_grad()
     def _update_ema(self):

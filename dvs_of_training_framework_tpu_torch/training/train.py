@@ -15,13 +15,25 @@ The step is host-bound, so the loop never waits on the card for a
 metric: losses stay on the device and are fetched with one stacked
 ``.cpu()`` every ``metric_flush_steps`` optimizer steps, and before any
 hook fires, so the logs stay aligned with the checkpoints.
+
+With ``window = K`` (``--device-queue-window``) the loop reads its batches
+as staged windows of K (``data/device_queue.py``) and runs a window that
+covers whole optimizer steps, with no hook due inside it, as one call of
+``train_step_fused`` (``state.make_fused_window_step``: one CUDA graph
+replay on a card); any other window, a partial one at the end or one a
+hook cuts, runs ``train_step`` slot by slot.  ``validate_windowed`` does
+the same for validation (``--validation-window``).  The logged values
+equal the per-batch loop's.
 """
+import itertools
+
 import torch
 
 from ..data.prefetch import prefetch_to_device
 from ..data.schema import pad_batch
 from ..utils.timer import (FakeTimer, SynchronizedWallClockTimer,
                            ThroughputTimer)
+from .state import step_values
 
 
 def make_hook_periodic(hook, interval):
@@ -49,21 +61,22 @@ def batch_num_events(batch, is_raw=True):
     return int(batch['events']['x'].size)
 
 
-def _fetch(records):
-    """Every ``(loss, (smoothness, photometric, out_reg))`` of ``records``
-    as host floats, through one device-to-host copy."""
-    scalars = [t.float() for loss, terms in records
-               for t in (loss, *terms[0], *terms[1], *terms[2])]
-    if not scalars:
+def _fetch(rows):
+    """Rows of ``state.step_values`` (each ``[1 + 3 * scales]`` or a
+    stack ``[n, 1 + 3 * scales]``) as ``(loss, (smoothness, photometric,
+    out_reg))`` host floats, one a row, through one device-to-host copy."""
+    if not rows:
         return []
-    values = torch.stack(scalars).cpu().tolist()
-    out, i = [], 0
-    for _, terms in records:
-        n = len(terms[0])
-        loss, flat = values[i], values[i + 1:i + 1 + 3 * n]
-        out.append((loss, (flat[:n], flat[n:2 * n], flat[2 * n:])))
-        i += 1 + 3 * n
-    return out
+    values = torch.cat([r.reshape(-1, r.shape[-1]) for r in rows]) \
+        .cpu().tolist()
+    n = (len(values[0]) - 1) // 3
+    return [(v[0], (v[1:1 + n], v[1 + n:1 + 2 * n], v[1 + 2 * n:]))
+            for v in values]
+
+
+def _window_rows(loss_k, terms_k):
+    """A fused window's ``(loss[K], terms)`` as K rows of step values."""
+    return torch.cat([loss_k[:, None], *terms_k], dim=1)
 
 
 def train(train_step,
@@ -86,7 +99,9 @@ def train(train_step,
           sequence_length=None,
           is_raw=True,
           prepare_batch=None,
-          samples_scale: int = 1):
+          samples_scale: int = 1,
+          window: int = 0,
+          train_step_fused=None):
     """Run the training loop.
 
     Args:
@@ -119,6 +134,15 @@ def train(train_step,
             samples_passed: a rank reads ``1/samples_scale`` of each
             global batch, and samples_passed (LR schedule, metrics x-axis,
             resume position) counts GLOBAL samples.
+        window: device-queue window K (0 = off): K batches are staged
+            a window and ``train_step`` (built with the same ``window``,
+            ``state.make_train_step``) steps slot ``micro_step % K``.
+            The state's ``micro_step`` must start at a multiple of K,
+            which holds for a fresh or resumed state.  One device only:
+            no ``prepare_batch``.
+        train_step_fused: optional ``(state, window) -> (state,
+            (loss[K], terms))`` (``state.make_fused_window_step``) that
+            runs a whole window in one call.
 
     Returns:
         (state, samples_passed)
@@ -130,7 +154,8 @@ def train(train_step,
         throughput = ThroughputTimer(batch_size=None, device=device)
     samples_passed = init_samples_passed
     pending_micro = []       # device (loss, terms) since the last boundary
-    pending_boundaries = []  # (step, samples_passed, micro records)
+    pending_boundaries = []  # deferred metric records (see flush_metrics)
+    boundary_count = 0       # optimizer boundaries deferred so far
     init_batch = init_step * accumulation_steps
     global_step = init_batch
     num_skipped = 0
@@ -145,35 +170,53 @@ def train(train_step,
         return pad_batch(host_batch, capacity if is_raw else None,
                          sequence_length=sequence_length)
 
+    def emit(b_step, b_samples, micro):
+        loss_sum = 0.0
+        smooth_sum, photo_sum, out_reg_sum = [], [], []
+        for p_loss, (smoothness, photometric, out_reg) in micro:
+            photo_sum = add_loss(photo_sum, photometric)
+            smooth_sum = add_loss(smooth_sum, smoothness)
+            out_reg_sum = add_loss(out_reg_sum, out_reg)
+            loss_sum += float(p_loss)
+        for tag, s, p, o in zip(tags, smooth_sum, photo_sum, out_reg_sum):
+            logger.add_scalar(f'Train/photometric loss/{tag}',
+                              p / accumulation_steps, b_samples)
+            logger.add_scalar(f'Train/smoothness loss/{tag}',
+                              s / accumulation_steps, b_samples)
+            logger.add_scalar(f'Train/out regularization/{tag}',
+                              o / accumulation_steps, b_samples)
+        logger.add_scalar('General/Train loss', loss_sum, b_samples)
+        if lr_fn is not None:
+            for i, lr in enumerate(lr_fn(b_step)):
+                logger.add_scalar(f'General/learning rate/{i}', lr,
+                                  b_samples)
+
     def flush_metrics():
-        nonlocal pending_boundaries
+        """Every deferred record's values in one device-to-host copy:
+        ``('single', step, samples_passed, micro (loss, terms))`` of one
+        optimizer step, ``('fused', first step, [samples_passed at each
+        boundary], loss[K], terms)`` of a fused window."""
+        nonlocal pending_boundaries, boundary_count
         if not pending_boundaries:
             return
-        fetched = iter(_fetch([r for _, _, micro in pending_boundaries
-                               for r in micro]))
-        for b_step, b_samples, micro in pending_boundaries:
-            loss_sum = 0.0
-            smooth_sum, photo_sum, out_reg_sum = [], [], []
-            for _ in micro:
-                p_loss, (smoothness, photometric, out_reg) = next(fetched)
-                photo_sum = add_loss(photo_sum, photometric)
-                smooth_sum = add_loss(smooth_sum, smoothness)
-                out_reg_sum = add_loss(out_reg_sum, out_reg)
-                loss_sum += float(p_loss)
-            for tag, s, p, o in zip(tags, smooth_sum, photo_sum,
-                                    out_reg_sum):
-                logger.add_scalar(f'Train/photometric loss/{tag}',
-                                  p / accumulation_steps, b_samples)
-                logger.add_scalar(f'Train/smoothness loss/{tag}',
-                                  s / accumulation_steps, b_samples)
-                logger.add_scalar(f'Train/out regularization/{tag}',
-                                  o / accumulation_steps, b_samples)
-            logger.add_scalar('General/Train loss', loss_sum, b_samples)
-            if lr_fn is not None:
-                for i, lr in enumerate(lr_fn(b_step)):
-                    logger.add_scalar(f'General/learning rate/{i}', lr,
-                                      b_samples)
+        rows = []
+        for record in pending_boundaries:
+            if record[0] == 'fused':
+                rows.append(_window_rows(*record[3:]))
+            else:
+                rows += [step_values(*r) for r in record[3]]
+        fetched = iter(_fetch(rows))
+        for record in pending_boundaries:
+            if record[0] == 'fused':
+                _, first_step, samples_list = record[:3]
+                for j, b_samples in enumerate(samples_list):
+                    emit(first_step + j, b_samples,
+                         [next(fetched) for _ in range(accumulation_steps)])
+            else:
+                _, b_step, b_samples, micro = record
+                emit(b_step, b_samples, [next(fetched) for _ in micro])
         pending_boundaries = []
+        boundary_count = 0
 
     def report_skip(host_batch):
         nonlocal num_skipped
@@ -190,7 +233,8 @@ def train(train_step,
                           samples_passed)
 
     def run_step(host_batch, device_batch):
-        nonlocal state, global_step, samples_passed, pending_micro
+        nonlocal state, global_step, samples_passed, pending_micro, \
+            boundary_count
         global_step += 1
         samples_passed += host_batch['size'] * samples_scale
         if throughput is not None:
@@ -208,11 +252,13 @@ def train(train_step,
         pending_micro.append((loss, terms))
         if is_step_boundary:
             step = global_step // accumulation_steps
-            pending_boundaries.append((step, samples_passed, pending_micro))
+            pending_boundaries.append(('single', step, samples_passed,
+                                       pending_micro))
             pending_micro = []
+            boundary_count += 1
             hook_fires = any(step % getattr(h, 'interval', 1) == 0
                              for h in hooks.values())
-            if hook_fires or len(pending_boundaries) >= metric_flush_steps:
+            if hook_fires or boundary_count >= metric_flush_steps:
                 flush_metrics()
         timers('logging').stop()
 
@@ -228,6 +274,102 @@ def train(train_step,
         # 'all_reduce': the sharded steps' collectives, inside train_step
         timers.log(names=['batch_construction', 'train_step', 'logging',
                           'all_reduce'] + list(hooks))
+
+    def hook_inside(first_opt_step, count):
+        """Does any hook fire at opt steps (first, first + count]?"""
+        for h in hooks.values():
+            interval = getattr(h, 'interval', 1)
+            if (first_opt_step + count) // interval \
+                    != first_opt_step // interval:
+                return True
+        return False
+
+    def run_fused(host_batches, device_window):
+        """A whole window in one call of train_step_fused."""
+        nonlocal state, global_step, samples_passed, boundary_count
+        assert not pending_micro, \
+            'fused window entered with a partial accumulation group'
+        if throughput is not None:
+            throughput.batch_size = sum(b['size'] for b in host_batches)
+            throughput.start()
+        timers('train_step').start()
+        state, (loss_k, terms_k) = train_step_fused(state, device_window)
+        timers('train_step').stop()
+        if throughput is not None:
+            throughput.stop()
+        base_step = global_step // accumulation_steps
+        samples_list = []   # samples_passed at each optimizer boundary
+        for i, host_batch in enumerate(host_batches):
+            samples_passed += host_batch['size'] * samples_scale
+            if (global_step + i + 1) % accumulation_steps == 0:
+                samples_list.append(samples_passed)
+        global_step += len(host_batches)
+        timers('logging').start()
+        pending_boundaries.append(('fused', base_step + 1, samples_list,
+                                   loss_k, terms_k))
+        boundary_count += len(samples_list)
+        step = global_step // accumulation_steps
+        hook_fires = any(step % getattr(h, 'interval', 1) == 0
+                         for h in hooks.values())
+        if hook_fires or boundary_count >= metric_flush_steps:
+            flush_metrics()
+        timers('logging').stop()
+        if on_state_update is not None:
+            on_state_update(state)
+        for k, hook in hooks.items():   # periodic wrappers self-gate
+            timers(k).start()
+            hook(step, samples_passed)
+            timers(k).stop()
+        timers.log(names=['batch_construction', 'train_step', 'logging',
+                          'all_reduce'] + list(hooks))
+
+    if window > 0:
+        if prepare_batch is not None:
+            raise ValueError('the device queue runs on one device: a mesh '
+                             'prepare_batch takes no window')
+        # the ``micro_step % window`` slot assumes the loop enters
+        # window-aligned; a state resumed mid-window would silently step
+        # the wrong staged batch
+        if state.micro_step % window:
+            raise ValueError(
+                f'resumed micro_step {state.micro_step} is not aligned to '
+                f'the device-queue window {window}; train with a window '
+                'that divides the checkpoint cadence or disable the device '
+                'queue')
+        from ..data.device_queue import prefetch_windows
+        stream = prefetch_windows(iter(loader), make_batch, window,
+                                  device=device)
+        timers('batch_construction').start()
+        done = False
+        for host_batches, device_window, n_valid, skipped in stream:
+            timers('batch_construction').stop()
+            for host_batch in skipped:
+                report_skip(host_batch)
+            remaining = num_steps * accumulation_steps - global_step
+            first_opt = global_step // accumulation_steps
+            # the whole window in one call only when it covers whole
+            # optimizer steps and no hook must fire inside it
+            if (train_step_fused is not None and n_valid == window
+                    and remaining >= window
+                    and window % accumulation_steps == 0
+                    and global_step % accumulation_steps == 0
+                    and not hook_inside(first_opt,
+                                        window // accumulation_steps - 1)):
+                run_fused(host_batches, device_window)
+            else:
+                for i in range(n_valid):
+                    if global_step == num_steps * accumulation_steps:
+                        done = True
+                        break
+                    run_step(host_batches[i], device_window)
+            if done:
+                break
+            timers('batch_construction').start()
+        else:
+            timers('batch_construction').stop()
+        stream.close()
+        flush_metrics()
+        return state, samples_passed
 
     stream = prefetch_to_device(iter(loader), make_batch, device)
     timers('batch_construction').start()
@@ -296,6 +438,50 @@ def validate(eval_step, loader, samples_passed, logger, tags, device,
     if n_dropped:
         print(f'validate: dropped {n_dropped} batches the mesh split '
               'refused (indivisible remainder or a shard over capacity)')
+    for loss, (smoothness, photometric, out_reg) in _fetch(
+            [step_values(*p) for p in pending]):
+        photo_sum = add_loss(photo_sum, photometric)
+        smooth_sum = add_loss(smooth_sum, smoothness)
+        out_reg_sum = add_loss(out_reg_sum, out_reg)
+        loss_sum += float(loss)
+    return _emit_validation(logger, tags, samples_passed, n, loss_sum,
+                            smooth_sum, photo_sum, out_reg_sum)
+
+
+def runs_of_equal_size(batches):
+    """The batches cut into runs of one ``size`` each, lazily: a window
+    stacks batches of one static size, and a finite validation stream may
+    end with a smaller remainder batch."""
+    for _, run in itertools.groupby(batches, key=lambda b: b['size']):
+        yield run
+
+
+def validate_windowed(fused_eval_step, loader, samples_passed, logger, tags,
+                      window, device, event_capacity=2 ** 18,
+                      sequence_length=None):
+    """Validation through the device queue: K batches a window and one
+    call of ``fused_eval_step`` (``state.make_fused_eval_step``) each,
+    fetched from the device once at the end.  The same scalars as
+    ``validate``: the same losses of the same padded batches, summed in
+    the same order (reference utils/training.py:244-271)."""
+    from ..data.device_queue import prefetch_windows
+
+    def prepare(host_batch):
+        if batch_num_events(host_batch) > event_capacity:
+            raise OverflowError('oversized validation batch')
+        return pad_batch(host_batch, event_capacity,
+                         sequence_length=sequence_length)
+
+    n = 0
+    photo_sum, smooth_sum, out_reg_sum = [], [], []
+    loss_sum = 0.0
+    pending = []   # the valid rows of each window's step values
+    for run in runs_of_equal_size(loader):
+        for _, device_window, n_valid, _ in prefetch_windows(
+                run, prepare, window, device=device):
+            pending.append(_window_rows(
+                *fused_eval_step(device_window, n_valid))[:n_valid])
+            n += n_valid
     for loss, (smoothness, photometric, out_reg) in _fetch(pending):
         photo_sum = add_loss(photo_sum, photometric)
         smooth_sum = add_loss(smooth_sum, smoothness)

@@ -135,7 +135,7 @@ def test_prep_train_resume_eval_without_jax(tmp_path):
     # train 2 steps, then the same directory to 3: the second run resumes
     narrow = ['-d', 'cpu', '-bs', '2', '-mbs', '2', '--height', '32',
               '--width', '32', '--num_workers', '0', '--event-capacity',
-              '65536']
+              '65536', '--device-queue-window', '1']
     layout_env = dict(LAYOUT=str(layout), SHARDS=str(shards))
     script('run_accuracy_varied.sh', [run, *narrow], environ, STEPS='2',
            **layout_env)

@@ -8,7 +8,9 @@ CPU, with the port's EVFlowNet at 64x64, batch 2, two steps; and adds
 accepted (sequences, plugins, dense mode, the timers, the profiler, a
 mesh and the multi-host flags), the refusal of a mesh the batch or the
 dense mode cannot take, the refusal of ``-d cuda`` without a card, and
-one ignored TPU-only flag that logs its line.
+one ignored TPU-only flag that logs its line.  The runs take the device
+queue with windows of 1 step (the cadence of their checkpoints), and a
+mesh with a window logs that it runs per step.
 """
 import os
 from pathlib import Path
@@ -51,9 +53,10 @@ def mvsec_layout(tmp_path):
 
 def run_cli(tmp_path, mvsec_layout, extra=()):
     model_dir = tmp_path / 'model'
+    # a window that divides the cadence of 1: every step one fused window
     argv = ['-m', str(model_dir), '--flownet_path', str(REPO / 'EVFlowNet'),
             '--checkpointing_interval', '1', '--permanent_interval', '1',
-            '-vp', '1'] + BASE + list(extra)
+            '-vp', '1', '--device-queue-window', '1'] + BASE + list(extra)
     os.environ['DVS_DATA_PATH'] = str(mvsec_layout)
     try:
         cli.main(argv)
@@ -177,3 +180,21 @@ def test_train_cli_ignores_tpu_only_flag(tmp_path, capsys):
     assert args.wire_events == 'pooled'
     lines = capsys.readouterr().out.splitlines()
     assert lines == ['--wire-events pooled: a TPU-only option, ignored']
+
+
+@pytest.mark.parametrize('flags, lines', [
+    (['--device-queue-window', '4'], []),
+    (['--mesh', 'data:2', '--device-queue-window', '4'],
+     ['--device-queue-window 4, --validation-window 8: not yet ported on '
+      'a mesh, runs per step']),
+    (['--mesh', 'data:2', '--device-queue-window', '0',
+      '--validation-window', '0'], []),
+])
+def test_train_cli_logs_the_windows_on_a_mesh(tmp_path, capsys, flags,
+                                              lines):
+    """The windows are no TPU-only option; on a mesh they are not ported
+    yet, and a window other than 0 says so in one line."""
+    args = cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
+    assert args.device_queue_window == int(flags[flags.index(
+        '--device-queue-window') + 1])
+    assert capsys.readouterr().out.splitlines() == lines

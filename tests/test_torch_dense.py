@@ -434,7 +434,8 @@ CLI = ['-d', 'cpu', '-bs', '2', '-mbs', '2', '--num_workers', '0',
        '--height', '64', '--width', '64', '-cl', '1', '--optimizer',
        'RANGER', '--event-capacity', '4096', '--checkpointing_interval',
        '1', '--permanent_interval', '1', '-vp', '2', '--ev_images',
-       '--event-representation-depth', str(DEPTH)]
+       '--event-representation-depth', str(DEPTH),
+       '--device-queue-window', '1']
 
 
 def test_train_cli_dense_on_baked_shards(tmp_path, mvsec_layout):

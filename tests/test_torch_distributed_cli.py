@@ -36,7 +36,7 @@ ARGV = ['-d', 'cpu', '-bs', '4', '-mbs', '4', '--num_workers', '0',
         '--height', '64', '--width', '64', '-cl', '1', '--flownet_path',
         'DummyFlowNet', '--optimizer', 'ADAM', '--checkpointing_interval',
         '1', '--permanent_interval', '1', '--event-capacity', '16384',
-        '-vp', '2']
+        '-vp', '2', '--device-queue-window', '1']
 # run: (launcher, over the shards, steps)
 RUNS = {'mesh_raw': ('mesh', False, 2), 'hosts_raw': ('hosts', False, 2),
         'mesh_shards': ('mesh', True, 3), 'hosts_shards': ('hosts', True, 3),

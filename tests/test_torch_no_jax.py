@@ -12,12 +12,15 @@ which import flax) was loaded:
   and running one CPU training step of the golden configuration and one
   of the bf16 recipe, then one of RecurrentFlowNet on 2-element samples;
 - the training CLI's ``run`` training 2 steps on the CPU from an in-memory
-  loader, checkpointing, and a second ``run`` resuming and taking a third;
+  loader, checkpointing, and a second ``run`` resuming and taking a third,
+  with the device queue's windows of one step (``--device-queue-window
+  1``, the checkpoints' cadence) and windowed validation;
 - the whole data path and both CLIs' ``main``: the port's tools build a
   tiny synthetic set in the npy store (raw ``varied`` sequences, their
   per-element files, encoded shards), the training CLI's ``main`` trains
-  2 steps on the shards with validation on a raw split, checkpointing,
-  and a second ``main`` resumes and takes a third; then the evaluation
+  2 steps on the shards in windows of one step with validation on a raw
+  split, checkpointing, and a second ``main`` resumes and takes a third
+  the same way; then the evaluation
   CLI's ``main`` scores the EMA of the last checkpoint; the bake tool
   bakes that checkpoint's representation into dense shards, and
   ``main`` trains a step on them with ``--ev_images``; then
@@ -184,7 +187,8 @@ with tempfile.TemporaryDirectory() as out:
             '-m', out, '-d', 'cpu', '-bs', str(B), '-mbs', str(B),
             '-ne', str(steps), '--height', str(H), '--width', str(W),
             '--event-capacity', '128', '--checkpointing_interval', '1',
-            '--permanent_interval', '1', '-vp', '2'])
+            '--permanent_interval', '1', '-vp', '2',
+            '--device-queue-window', '1'])
         _, _, state, samples = cli.run(
             args, stream, lambda: [collated(100)],
             SummaryWriter(out + '/log'))
@@ -246,6 +250,7 @@ if __name__ == '__main__':
                       '--preprocessed-dataset-path', str(shards),
                       '--checkpointing_interval', '1',
                       '--permanent_interval', '1', '-vp', '2',
+                      '--device-queue-window', '1',
                       '--ema-decay', '0.999', '--allow-arguments-change'])
       assert Serializer(run).list_known_steps() == [0, 1, 2, 3]
       config = json.loads((configs / 'synth_testing.json').read_text())

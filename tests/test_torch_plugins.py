@@ -549,7 +549,8 @@ def test_recurrent_clis_train_resume_and_evaluate(tmp_path, monkeypatch,
                         '--flownet_path', 'RecurrentFlowNet',
                         '--preprocessed-dataset-path', str(shards),
                         '--checkpointing_interval', '1',
-                        '--permanent_interval', '1', '-vp', '3']
+                        '--permanent_interval', '1', '-vp', '3',
+                        '--device-queue-window', '1']
                        + sequence + list(extra))
 
     main(tmp_path / 'whole', 3)
