@@ -152,12 +152,14 @@ Phases:
     reduced a step on each axis;
 24. ``train.main(['--mesh', 'data:2', ...])`` over phase 14's shards: 12
     production-recipe steps on two spawned ranks sharing the card,
-    checkpoints and sharded validation every 4, ``--device-queue-window
-    4`` logged as not yet ported on a mesh; rank 0 alone writes,
+    checkpoints and sharded validation every 4, one step at a time
+    (``--device-queue-window 0``: phase 30 runs it in windows); rank 0
+    alone writes,
     ``samples_passed`` counts global samples, two copies cut back to
     checkpoint 8 resume through ``main()`` held to phase 12's rule; then
-    ``--mesh data:1,event:2`` 4 steps over the raw split (event rank 0
-    reads and sends each batch, each rank voxelizes half its events);
+    ``--mesh data:1,event:2`` 4 steps over the raw split in one window
+    (event rank 0 reads and sends each batch, each rank voxelizes half
+    its events);
 25. two processes started with the multi-host flags (``--coordinator-
     address``, ``--num-processes 2``, ``--process-id``) over phase 14's
     shards (strided reads, the sharded skip rule), 8 recipe steps with
@@ -217,10 +219,26 @@ Phases:
     equals the uninterrupted run bit for bit; then ``train.main()`` with
     the default windows (16 and 8) over phase 14's shards, 80 steps with
     checkpoints and validation every 16: every window one replay, ms a
-    loop step against phase 14's one batch at a time.
+    loop step against phase 14's one batch at a time;
+30. the device-queue window on a mesh: (a) a one-rank NCCL group
+    (``data:1``) in this process, two windows of 16 bench batches as 32
+    eager sharded steps and as 2 replays of one graph whose capture
+    holds the data group's all-reduce, golden and recipe (phase 29's
+    optimizer), then the recipe on ``data:1,event:1`` (the grid sum and
+    the quantization gradients' sum captured too): losses, parameters
+    and the optimizer state bit for bit, each way's ms a step (in turns),
+    device busy, idle share, host launches, NCCL's kernels' share of the
+    busy time, peak memory and capture time, and the MB all-reduced a
+    step; (b) two spawned ranks sharing the card (gloo), ``data:2`` and
+    ``data:1,event:2``, the recipe over 8 bench batches as windows of 4
+    (eager in one call each, gloo's rule) and as per-step sharded steps,
+    bit for bit, both ranks, timed in turns; (c) ``train.main()`` with
+    ``--mesh data:2 --device-queue-window 4`` as phase 24, 12 steps
+    over phase 14's shards, against phase 24's seconds, and two copies cut
+    back to checkpoint 8 resumed and held to phase 12's rule.
 
 Every phase from 17 on prints its own seconds.  A window (phases 11, 18,
-21, 28, 29) runs as one CUDA graph replay where it covers whole
+21, 28, 29, 30) runs as one CUDA graph replay where it covers whole
 optimizer steps and no hook is due inside it; the capture's warm-up
 step counts its launches, the capture none, and each replay what the
 capture recorded (``ops.count_launches``).  A phase that starts
@@ -319,6 +337,9 @@ WINDOW_ARGS = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
                               training_steps=40, rs=0.5, grad_clip_norm=1.0,
                               ema_decay=0.999)
 WINDOW_MAIN_STEPS = 5 * WINDOW
+# phase 30: the windows of two ranks sharing the card, and of the spawned
+# mesh's main() (phase 24's checkpoint cadence)
+MESH_WINDOW = 4
 
 
 MLP_GRADS = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
@@ -2477,7 +2498,7 @@ def mesh_phases(out, collated, capacity, device, card):
             '--checkpointing_interval', str(every), '--permanent_interval',
             str(every), '-vp', str(every), '--event-capacity',
             str(2 * capacity), '--mesh', 'data:2', '--device-queue-window',
-            str(every)] + RECIPE_FLAGS
+            '0'] + RECIPE_FLAGS
     before = launch_counts()
     t0 = time.perf_counter()
     ranks = cli.main(['-m', str(run)] + argv)
@@ -2498,7 +2519,8 @@ def mesh_phases(out, collated, capacity, device, card):
     launches['mesh_main'] = check_rank_launches('[24]', ranks, MESH_STEPS)
     print(f'[24] train.main() --mesh data:2 on {[r["device"] for r in ranks]}'
           f', {MESH_STEPS} production-recipe steps over phase 14\'s shards, '
-          f'global batch 8: losses ' + ' '.join(f'{v:.5f}' for v in losses)
+          f'global batch 8, one step at a time (phase 30 (c) runs it in '
+          f'windows): losses ' + ' '.join(f'{v:.5f}' for v in losses)
           + '; sharded validation ' + ' '.join(f'{v:.5f}' for v in val_losses)
           + f' (the sharded skip rule prints its skips above); '
           f'{main_s:.2f} s in all ({main_s / MESH_STEPS * 1e3:.1f} ms a step '
@@ -2508,13 +2530,14 @@ def mesh_phases(out, collated, capacity, device, card):
     numbers['mesh_main_s'] = main_s
     resume_against('[24]', out, run, argv, MESH_STEPS, every)
 
-    # the event axis over the raw split: event rank 0 reads, both cut
+    # the event axis over the raw split: event rank 0 reads, both cut; one
+    # window of `every` steps, eager in one call under gloo
     run = out / 'run_mesh_event'
     argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
             '-ne', str(every), '--checkpointing_interval', str(every),
             '--permanent_interval', str(every), '-vp', str(every),
-            '--event-capacity', str(2 ** 18), '--mesh', 'data:1,event:2'
-            ] + RECIPE_FLAGS
+            '--event-capacity', str(2 ** 18), '--mesh', 'data:1,event:2',
+            '--device-queue-window', str(every)] + RECIPE_FLAGS
     t0 = time.perf_counter()
     ranks = cli.main(argv)
     main_s = time.perf_counter() - t0
@@ -2525,7 +2548,8 @@ def mesh_phases(out, collated, capacity, device, card):
     if len(losses) != every or not np.isfinite(losses).all():
         raise AssertionError(f'[24] event axis: losses {losses}')
     print(f'[24] train.main() --mesh data:1,event:2 over the raw split, '
-          f'{every} steps, each rank voxelizing half of each batch\'s '
+          f'{every} steps in one window, each rank voxelizing half of '
+          'each batch\'s '
           'events: losses ' + ' '.join(f'{v:.5f}' for v in losses)
           + f'; {main_s:.2f} s in all; launches '
           f'{launches["mesh_event_main"]}')
@@ -3135,6 +3159,163 @@ def window_runs(step, state, windows, rounds):
     return time.perf_counter() - t0
 
 
+def window_ways(tag, config, evaluator, build, windows, counters, card):
+    """The staged ``windows`` (each of K bench batches) as K eager steps a
+    window and as one CUDA graph replay a window, from the same bench
+    weights of ``config`` and WINDOW_ARGS' optimizer: ``build(mode,
+    model, optimizer)`` gives the eager mode's per-slot step or the graph
+    mode's fused window step.  Checks the losses, the parameters and the
+    optimizer state bit for bit, and the launches (the capture's warm-up
+    step, then what the capture recorded at each replay); times both ways
+    in turns and traces a window of each (device busy and ops, host
+    launches, NCCL's kernels); returns the two runs, the numbers and the
+    graph run's launches."""
+    from dvs_of_training_framework_tpu_torch.training import (
+        construct_optimizer, create_train_state)
+    device = windows[0].storage.device
+    K = windows[0].window
+    runs = {}
+    for mode in ('eager', 'graph'):
+        model = bench_model(config, device)
+        optimizer = construct_optimizer(WINDOW_ARGS, model)
+        state = create_train_state()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset(counters)
+        one = build(mode, model, optimizer)
+        if mode == 'eager':
+            def step(st, window, one=one):
+                return [one(st, window)[1][0] for _ in range(K)]
+            losses = [v for w in windows for v in step(state, w)]
+            first_s, graph = None, None
+        else:
+            def step(st, window, fused=one):
+                return [fused(st, window)[1][0]]
+            t0 = time.perf_counter()
+            losses = step(state, windows[0])
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            losses += step(state, windows[1])
+            graph, = one.graphs.values()
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[mode] = SimpleNamespace(
+            model=model, optimizer=optimizer, state=state, step=step,
+            graph=graph, first_s=first_s, peak=peak, counts=counts,
+            losses=torch.cat([v.reshape(-1) for v in losses]).cpu(),
+            params=clone_tree(model.state_dict()),
+            opt=flat_state(clone_tree(optimizer.state_dict())))
+    eager, graph = runs['eager'], runs['graph']
+    n = len(windows) * K
+    bad = [k for k in eager.params
+           if not bits_equal(graph.params[k], eager.params[k])]
+    bad += [k for k in eager.opt
+            if not bits_equal(graph.opt[k], eager.opt[k])]
+    n_equal = int((graph.losses.view(torch.int32)
+                   == eager.losses.view(torch.int32)).sum())
+    print(f'{tag} {config}: {n} steps as {n} eager steps and as '
+          f'{len(windows)} replays of one captured graph: {n_equal}/{n} '
+          f'losses, '
+          f'{len(eager.params) - len([k for k in bad if k in eager.params])}'
+          f'/{len(eager.params)} parameters and the optimizer state '
+          f'({len(eager.opt)} entries: moments, slow weights, EMA, '
+          f'counts) equal bit for bit; losses '
+          + ' '.join(f'{v:.5f}' for v in graph.losses.tolist()[:4])
+          + ' ..')
+    if bad or n_equal != n or graph.state.step != n:
+        raise AssertionError(f'{tag} {config}: the graph replay differs '
+                             f'from the eager steps: {bad[:5]}, '
+                             f'{n_equal} losses equal')
+    # the graph run: one warm-up step before the capture, then the
+    # windows; a replay counts what the capture recorded
+    want = {k: c + c // n for k, c in eager.counts.items()}
+    print(f'  launches: eager {eager.counts}; graph {graph.counts} (the '
+          'capture\'s warm-up step, then each replay counts what the '
+          f'capture recorded: {graph.graph.launches})')
+    if graph.counts != want or not all(
+            graph.graph.launches[k] == c // len(windows)
+            for k, c in eager.counts.items()):
+        raise AssertionError(f'{tag} {config}: graph launches '
+                             f'{graph.counts}, expected {want}')
+
+    # ms a step each way, in turns, on the windows already staged
+    seconds = {'eager': [], 'graph': []}
+    for mode in ('eager', 'graph', 'eager', 'graph'):
+        r = runs[mode]
+        rounds = 2 if mode == 'eager' else 4
+        seconds[mode].append(window_runs(r.step, r.state, windows,
+                                         rounds) / (rounds * K))
+    ms = {m: 1e3 * statistics.mean(v) for m, v in seconds.items()}
+    # one window traced each way; the graph's up to three times, until
+    # the trace holds every kernel the counters say a replay launches:
+    # the profiler can drop a device event of a graph (one of 16 K2
+    # forwards in every try of one run)
+    traced = {}
+    g = graph.graph
+    for mode, tries in (('eager', 1), ('graph', 3)):
+        r = runs[mode]
+        for _ in range(tries):
+            with profile() as prof:
+                r.step(r.state, windows[0])
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            ops = device_ops(events)
+            kernels = {k: sum(e.count for e in ops if name in e.key)
+                       for k, name in TRACE_KERNEL_OF.items()}
+            if all(kernels[k] == g.launches[k] for k in kernels):
+                break
+        nccl = [e for e in ops if 'nccl' in e.key.lower()]
+        traced[mode] = SimpleNamespace(
+            busy=sum(e.device_time_total for e in ops) / 1e3 / K,
+            ops=sum(e.count for e in ops) / K,
+            host=host_launches(events) / K, kernels=kernels,
+            nccl_ms=sum(e.device_time_total for e in nccl) / 1e3 / K,
+            nccl_ops=sum(e.count for e in nccl) / K)
+    print(f'{tag} {config} step, eager against one graph replay a window '
+          f'of {K} (staged windows, timed in turns, eager 2 + 2 windows, '
+          f'graph 4 + 4):')
+    for mode in ('eager', 'graph'):
+        t = traced[mode]
+        idle = 100 * (1 - t.busy / ms[mode]) if t.busy else float('nan')
+        print(f'  {mode}: {ms[mode]:.3f} ms a step; device busy '
+              f'{t.busy:.3f} ms a step in {t.ops:g} device ops, '
+              f'{idle:.1f}% idle; {t.host:g} host launches a step '
+              f'(kernel and graph launches, copies, memsets); NCCL\'s '
+              f'kernels {t.nccl_ms:.4f} ms a step in {t.nccl_ops:g} ops ('
+              f'{100 * t.nccl_ms / t.busy if t.busy else 0:.2f}% of the '
+              f'busy time); peak memory {runs[mode].peak:.3f} GiB; card: '
+              f'{card}')
+    print(f'  graph: warm-up and capture {graph.first_s:.2f} s with the '
+          f'first replay (capture alone {g.capture_s:.2f} s), '
+          f'{g.replays} replays')
+    inside = traced['graph'].kernels
+    if sum(inside.values()):
+        print('  kernels inside one replay, by the profiler: '
+              + ', '.join(f'{k} {c}' for k, c in inside.items())
+              + f'; by the launch counters: {g.launches}')
+        # every kernel the replay launches shows in its trace, none
+        # more often than the counters say
+        if any(not 0 < inside[k] <= g.launches[k] if g.launches[k]
+               else inside[k] for k in inside):
+            raise AssertionError(f'{tag} {config}: the profiler sees '
+                                 f'{inside} in a replay, the counters '
+                                 f'{g.launches}')
+    else:
+        print('  the profiler shows no kernel inside a replay: the '
+              f'launch counters stand for it, {g.launches}')
+    numbers = {
+        'ms': ms, 'busy_ms': {m: traced[m].busy for m in traced},
+        'device_ops': {m: traced[m].ops for m in traced},
+        'host_launches': {m: traced[m].host for m in traced},
+        'nccl_ms': {m: traced[m].nccl_ms for m in traced},
+        'peak_gib': {m: runs[m].peak for m in runs},
+        'capture_s': g.capture_s, 'first_call_s': graph.first_s,
+        'replay_kernels': inside}
+    return runs, numbers, graph.counts
+
+
 def window_phase(out, collated, capacity, device, card, counters, shapes):
     """Phase 29: the device queue's windows at the bench shape, each window
     of WINDOW training steps as eager steps and as one CUDA graph replay,
@@ -3148,8 +3329,8 @@ def window_phase(out, collated, capacity, device, card, counters, shapes):
     from dvs_of_training_framework_tpu_torch.losses import (LOSS_PRECISIONS,
                                                             MultiScaleLoss)
     from dvs_of_training_framework_tpu_torch.training import (
-        construct_optimizer, create_train_state, make_eval_step,
-        make_fused_eval_step, make_fused_window_step, make_train_step)
+        make_eval_step, make_fused_eval_step, make_fused_window_step,
+        make_train_step)
     from dvs_of_training_framework_tpu_torch.training.serializer import \
         Serializer
     from dvs_of_training_framework_tpu_torch.training.train import (
@@ -3172,143 +3353,18 @@ def window_phase(out, collated, capacity, device, card, counters, shapes):
     for config in ('golden', 'recipe'):
         evaluator = MultiScaleLoss(
             shapes, bf16x2=LOSS_PRECISIONS[CONFIGS[config][1]])
-        runs = {}
-        for mode in ('eager', 'graph'):
-            model = bench_model(config, device)
-            optimizer = construct_optimizer(WINDOW_ARGS, model)
-            state = create_train_state()
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            reset(counters)
+
+        def build(mode, model, optimizer):
             if mode == 'eager':
-                one = make_train_step(model, evaluator, optimizer,
-                                      LOSS_WEIGHTS, 1, window=K)
+                return make_train_step(model, evaluator, optimizer,
+                                       LOSS_WEIGHTS, 1, window=K)
+            return make_fused_window_step(model, evaluator, optimizer,
+                                          LOSS_WEIGHTS, 1, K)
 
-                def step(st, window, one=one):
-                    return [one(st, window)[1][0] for _ in range(K)]
-                losses = [v for w in windows for v in step(state, w)]
-                first_s, graph = None, None
-            else:
-                fused = make_fused_window_step(model, evaluator, optimizer,
-                                               LOSS_WEIGHTS, 1, K)
-
-                def step(st, window, fused=fused):
-                    return [fused(st, window)[1][0]]
-                t0 = time.perf_counter()
-                losses = step(state, windows[0])
-                torch.cuda.synchronize()
-                first_s = time.perf_counter() - t0
-                losses += step(state, windows[1])
-                graph, = fused.graphs.values()
-            torch.cuda.synchronize()
-            counts = read_counts(counters)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            runs[mode] = SimpleNamespace(
-                model=model, optimizer=optimizer, state=state, step=step,
-                graph=graph, first_s=first_s, peak=peak, counts=counts,
-                losses=torch.cat([v.reshape(-1) for v in losses]).cpu(),
-                params=clone_tree(model.state_dict()),
-                opt=flat_state(clone_tree(optimizer.state_dict())))
-        eager, graph = runs['eager'], runs['graph']
-        bad = [k for k in eager.params
-               if not bits_equal(graph.params[k], eager.params[k])]
-        bad += [k for k in eager.opt
-                if not bits_equal(graph.opt[k], eager.opt[k])]
-        n_equal = int((graph.losses.view(torch.int32)
-                       == eager.losses.view(torch.int32)).sum())
-        print(f'[29] {config}: {2 * K} steps as {2 * K} eager steps and as '
-              f'2 replays of one captured graph: {n_equal}/{2 * K} losses, '
-              f'{len(eager.params) - len([k for k in bad if k in eager.params])}'
-              f'/{len(eager.params)} parameters and the optimizer state '
-              f'({len(eager.opt)} entries: moments, slow weights, EMA, '
-              f'counts) equal bit for bit; losses '
-              + ' '.join(f'{v:.5f}' for v in graph.losses.tolist()[:4])
-              + ' ..')
-        if bad or n_equal != 2 * K or graph.state.step != 2 * K:
-            raise AssertionError(f'[29] {config}: the graph replay differs '
-                                 f'from the eager steps: {bad[:5]}, '
-                                 f'{n_equal} losses equal')
-        # the graph run: one warm-up step before the capture, then two
-        # windows; a replay counts what the capture recorded
-        want = {k: n + n // (2 * K) for k, n in eager.counts.items()}
-        print(f'  launches: eager {eager.counts}; graph {graph.counts} (the '
-              'capture\'s warm-up step, then each replay counts what the '
-              f'capture recorded: {graph.graph.launches})')
-        if graph.counts != want or not all(
-                graph.graph.launches[k] == n // 2
-                for k, n in eager.counts.items()):
-            raise AssertionError(f'[29] {config}: graph launches '
-                                 f'{graph.counts}, expected {want}')
+        runs, numbers[config], counts = window_ways(
+            '[29]', config, evaluator, build, windows, counters, card)
         if config == 'recipe':
-            launches = graph.counts
-
-        # ms a step each way, in turns, on the windows already staged
-        seconds = {'eager': [], 'graph': []}
-        for mode in ('eager', 'graph', 'eager', 'graph'):
-            r = runs[mode]
-            rounds = 2 if mode == 'eager' else 4
-            seconds[mode].append(window_runs(r.step, r.state, windows,
-                                             rounds) / (rounds * K))
-        ms = {m: 1e3 * statistics.mean(v) for m, v in seconds.items()}
-        # one window traced each way; the graph's up to three times, until
-        # the trace holds every kernel the counters say a replay launches:
-        # the profiler can drop a device event of a graph (one of 16 K2
-        # forwards in every try of one run)
-        traced = {}
-        g = runs['graph'].graph
-        for mode, tries in (('eager', 1), ('graph', 3)):
-            r = runs[mode]
-            for _ in range(tries):
-                with profile() as prof:
-                    r.step(r.state, windows[0])
-                    torch.cuda.synchronize()
-                events = prof.key_averages()
-                ops = device_ops(events)
-                kernels = {k: sum(e.count for e in ops if name in e.key)
-                           for k, name in TRACE_KERNEL_OF.items()}
-                if all(kernels[k] == g.launches[k] for k in kernels):
-                    break
-            traced[mode] = SimpleNamespace(
-                busy=sum(e.device_time_total for e in ops) / 1e3 / K,
-                ops=sum(e.count for e in ops) / K,
-                host=host_launches(events) / K, kernels=kernels)
-        print(f'[29] {config} step, eager against one graph replay a window '
-              f'of {K} (staged windows, timed in turns, eager 2 + 2 windows, '
-              f'graph 4 + 4):')
-        for mode in ('eager', 'graph'):
-            t = traced[mode]
-            idle = 100 * (1 - t.busy / ms[mode]) if t.busy else float('nan')
-            print(f'  {mode}: {ms[mode]:.3f} ms a step; device busy '
-                  f'{t.busy:.3f} ms a step in {t.ops:g} device ops, '
-                  f'{idle:.1f}% idle; {t.host:g} host launches a step '
-                  f'(kernel and graph launches, copies, memsets); peak memory '
-                  f'{runs[mode].peak:.3f} GiB; card: {card}')
-        print(f'  graph: warm-up and capture {runs["graph"].first_s:.2f} s '
-              f'with the first replay (capture alone {g.capture_s:.2f} s), '
-              f'{g.replays} replays')
-        inside = traced['graph'].kernels
-        if sum(inside.values()):
-            print('  kernels inside one replay, by the profiler: '
-                  + ', '.join(f'{k} {n}' for k, n in inside.items())
-                  + f'; by the launch counters: {g.launches}')
-            # every kernel the replay launches shows in its trace, none
-            # more often than the counters say
-            if any(not 0 < inside[k] <= g.launches[k] if g.launches[k]
-                   else inside[k] for k in inside):
-                raise AssertionError(f'[29] {config}: the profiler sees '
-                                     f'{inside} in a replay, the counters '
-                                     f'{g.launches}')
-        else:
-            print('  the profiler shows no kernel inside a replay: the '
-                  f'launch counters stand for it, {g.launches}')
-        numbers[config] = {
-            'ms': ms, 'busy_ms': {m: traced[m].busy for m in traced},
-            'device_ops': {m: traced[m].ops for m in traced},
-            'host_launches': {m: traced[m].host for m in traced},
-            'peak_gib': {m: runs[m].peak for m in runs},
-            'capture_s': g.capture_s, 'first_call_s': runs['graph'].first_s,
-            'replay_kernels': inside}
+            launches = counts
 
         # --- validation: one window of the first 8 batches, then 2 + 6
         # repeats; against one batch at a time, on the trained weights
@@ -3399,6 +3455,257 @@ def window_phase(out, collated, capacity, device, card, counters, shapes):
     if bad or resumed.keys() != whole.keys():
         raise AssertionError(f'[29] windowed resume differs: {bad[:5]}')
     print(f'[29] {time.perf_counter() - t_phase:.2f} s')
+    return launches, numbers
+
+
+def mesh_window_worker(rank, out, port):
+    """Phase 30 (b)'s rank ``rank`` of 2, sharing the card with the other
+    (gloo): for each mesh, the recipe from the bench weights over this
+    rank's pieces of the bench batches, once as per-step sharded steps
+    and once as fused windows of MESH_WINDOW (eager under gloo), saved to
+    ``out``; then a pass of each way again, in turns, timed; the kernels'
+    launches and steps over the worker's life."""
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+    from dvs_of_training_framework_tpu_torch.data.device_queue import \
+        stack_batches
+    from dvs_of_training_framework_tpu_torch.losses import (
+        LOSS_PRECISIONS, MultiScaleLoss)
+    from dvs_of_training_framework_tpu_torch.ops import launch_counts
+    from dvs_of_training_framework_tpu_torch.parallel import (
+        MeshGroups, initialize, make_sharded_fused_window_step,
+        make_sharded_train_step, parse_mesh)
+    from dvs_of_training_framework_tpu_torch.training import (
+        construct_optimizer, create_train_state)
+    out = Path(out)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = initialize(f'127.0.0.1:{port}', 2, rank, 'cuda')
+    collated, capacity, shapes = torch.load(out / 'batches.pt',
+                                            weights_only=False)
+    evaluator = MultiScaleLoss(shapes, bf16x2=LOSS_PRECISIONS['bf16x2'])
+    K, timing, steps = MESH_WINDOW, {}, 0
+    for spec in MESHES:
+        groups = MeshGroups(parse_mesh(spec), device)
+        if groups.window_graph:
+            raise AssertionError(f'[30] {spec}: gloo ranks sharing the card '
+                                 'would replay a graph')
+        event_axis = groups.mesh.event > 1
+        pieces = rank_batches(groups, collated, capacity)
+        windows = [stack_batches(pieces[i:i + K], pin=True).to(device)
+                   for i in range(0, len(pieces), K)]
+        ways = {}
+        for way in ('steps', 'windows'):
+            model = bench_model('recipe', device)
+            optimizer = construct_optimizer(WINDOW_ARGS, model)
+            state = create_train_state()
+            if way == 'steps':
+                one = make_sharded_train_step(
+                    model, evaluator, optimizer, LOSS_WEIGHTS, 1, groups,
+                    event_axis=event_axis)
+
+                def run(st, one=one):
+                    return [one(st, p.to(device))[1][0] for p in pieces]
+            else:
+                fused = make_sharded_fused_window_step(
+                    model, evaluator, optimizer, LOSS_WEIGHTS, 1, groups, K,
+                    event_axis=event_axis)
+
+                def run(st, fused=fused):
+                    return [fused(st, w)[1][0] for w in windows]
+            losses = torch.cat([v.reshape(-1) for v in run(state)]).cpu()
+            steps += len(pieces)
+            torch.save({'losses': losses,
+                        'params': clone_tree(model.state_dict()),
+                        'opt': flat_state(clone_tree(
+                            optimizer.state_dict()))},
+                       out / f'{spec}_{way}_{rank}.pt')
+            ways[way] = (run, state)
+        seconds = {'steps': [], 'windows': []}
+        for way in ('steps', 'windows', 'windows', 'steps'):
+            run, state = ways[way]
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            run(state)
+            torch.cuda.synchronize(device)
+            seconds[way].append((time.perf_counter() - t0) / len(pieces))
+            steps += len(pieces)
+        timing[spec] = {way: 1e3 * statistics.mean(v)
+                        for way, v in seconds.items()}
+        del ways
+        torch.cuda.empty_cache()
+    torch.save({'timing': timing, 'launches': launch_counts(),
+                'steps': steps, 'rank': rank},
+               out / f'worker_{rank}.pt')
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def mesh_window_phase(out, collated, capacity, device, card, counters,
+                      shapes, per_step_main_s):
+    """Phase 30: the device-queue window on a mesh.  (a) A one-rank NCCL
+    group at the bench shape: 2 windows of WINDOW as sharded eager steps
+    and as replays of one graph whose capture holds the all-reduces,
+    golden and recipe, then the recipe on the event axis (the grid sum and
+    the quantization gradients' sum captured too); (b) two ranks sharing
+    the card (gloo), ``data:2`` and ``data:1,event:2``: windows of
+    MESH_WINDOW, eager in one call each, against per-step sharded steps,
+    and the replicas; (c) ``train.main()`` with ``--mesh data:2
+    --device-queue-window MESH_WINDOW`` over phase 14's shards with a
+    resume from checkpoint 8 held to phase 12's rule.  Returns the launch
+    counts of (a)'s recipe graph run and of (c)'s ranks, and the
+    phase's numbers."""
+    import torch.distributed as dist
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data import pad_batch
+    from dvs_of_training_framework_tpu_torch.data.device_queue import \
+        stack_batches
+    from dvs_of_training_framework_tpu_torch.losses import (LOSS_PRECISIONS,
+                                                            MultiScaleLoss)
+    from dvs_of_training_framework_tpu_torch.ops import launch_counts
+    from dvs_of_training_framework_tpu_torch.parallel import (
+        MeshGroups, make_sharded_fused_window_step, make_sharded_train_step,
+        parse_mesh, window_rule)
+    from dvs_of_training_framework_tpu_torch.parallel.distributed import \
+        free_port
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    K = WINDOW
+    host = [pad_batch(c, capacity) for c in collated]
+    windows = [stack_batches([host[(w * K + i) % len(host)]
+                              for i in range(K)], pin=True).to(device)
+               for w in range(2)]
+    launches, numbers = {}, {}
+
+    # --- (a) a one-rank NCCL group: the window as one graph replay -------
+    dist.init_process_group('nccl', store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        print(f'[30] (a) a one-rank NCCL group, windows of {K} bench '
+              f'batches, WINDOW_ARGS as phase 29: {window_rule("nccl", device)}'
+              f'; card: {card}')
+        for config, spec in (('golden', 'data:1'), ('recipe', 'data:1'),
+                             ('recipe', 'data:1,event:1')):
+            groups = MeshGroups(parse_mesh(spec), device)
+            event_axis = 'event' in spec
+            if not groups.window_graph:
+                raise AssertionError(f'[30] {spec}: NCCL would not replay')
+            evaluator = MultiScaleLoss(
+                shapes, bf16x2=LOSS_PRECISIONS[CONFIGS[config][1]])
+
+            def build(mode, model, optimizer, groups=groups,
+                      evaluator=evaluator, event_axis=event_axis):
+                if mode == 'eager':
+                    return make_sharded_train_step(
+                        model, evaluator, optimizer, LOSS_WEIGHTS, 1, groups,
+                        event_axis=event_axis, window=K)
+                return make_sharded_fused_window_step(
+                    model, evaluator, optimizer, LOSS_WEIGHTS, 1, groups, K,
+                    event_axis=event_axis)
+
+            runs, nums, counts = window_ways(f'[30] {spec}', config,
+                                             evaluator, build, windows,
+                                             counters, card)
+            model = runs['graph'].model
+            n_params = sum(p.numel() for p in model.parameters())
+            n_quant = sum(p.numel() for n, p in model.named_parameters()
+                          if n.startswith('quantization_layer.'))
+            grid = host[0].size * 9 * host[0].images.shape[-1] ** 2
+            # the data axis: one flat fp32 buffer of the gradients, the
+            # loss and its 12 terms; the event axis: the grid and the
+            # quantization layer's gradients
+            nums['data_mb'] = 4 * (n_params + 13) / 1e6
+            nums['event_mb'] = 4 * (grid + n_quant) / 1e6 if event_axis \
+                else 0.0
+            print(f'  all-reduced a step: {nums["data_mb"]:.2f} MB on the '
+                  f'data axis, {nums["event_mb"]:.2f} MB on the event axis')
+            numbers[f'{config} {spec}'] = nums
+            if (config, spec) == ('recipe', 'data:1'):
+                launches['mesh_window'] = counts
+            for r in runs.values():
+                del r.model, r.optimizer, r.state, r.step, r.graph
+            del runs, model
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f'[30] (a) {time.perf_counter() - t_phase:.2f} s')
+
+    # --- (b) two ranks sharing the card: eager windows under gloo ---------
+    t0 = time.perf_counter()
+    work = out / 'mesh_window'
+    work.mkdir()
+    torch.save((collated[:2 * MESH_WINDOW], capacity, shapes),
+               work / 'batches.pt')
+    context = torch.multiprocessing.start_processes(
+        mesh_window_worker, args=(str(work), free_port()), nprocs=2,
+        join=False, start_method='spawn')
+    join_spawned(context, 600, '[30] (b)')
+    workers = [torch.load(work / f'worker_{r}.pt', weights_only=False)
+               for r in range(2)]
+    for spec in MESHES:
+        ways = {(way, r): torch.load(work / f'{spec}_{way}_{r}.pt',
+                                     weights_only=False)
+                for way in ('steps', 'windows') for r in range(2)}
+        want = ways['steps', 0]
+        bad = [(way, r, k) for (way, r), got in ways.items()
+               for part in ('params', 'opt') for k in want[part]
+               if not bits_equal(got[part][k], want[part][k])]
+        bad += [(way, r, 'losses') for (way, r), got in ways.items()
+                if not bits_equal(got['losses'], want['losses'])]
+        print(f'[30] (b) {spec}, two ranks sharing the card (gloo), the '
+              f'recipe over {2 * MESH_WINDOW} bench batches: windows of '
+              f'{MESH_WINDOW} ({window_rule("gloo", device)}) against '
+              f'per-step sharded steps, and rank 1 against rank 0: '
+              f'{len(bad)} differences in the losses, {len(want["params"])}'
+              f' parameters and {len(want["opt"])} optimizer entries; '
+              + '; '.join(f'rank {w["rank"]} {w["timing"][spec]["steps"]:.3f}'
+                          f' ms a step per step, '
+                          f'{w["timing"][spec]["windows"]:.3f} in windows'
+                          for w in workers)
+              + f' (in turns); card: {card}')
+        if bad:
+            raise AssertionError(f'[30] (b) {spec}: differ {bad[:5]}')
+    launches['mesh_window_ranks'] = check_rank_launches(
+        '[30] (b)', workers, workers[0]['steps'])
+    numbers['gloo'] = {spec: [w['timing'][spec] for w in workers]
+                       for spec in MESHES}
+    print(f'[30] (b) {time.perf_counter() - t0:.2f} s')
+
+    # --- (c) train.main() --mesh data:2 with windows, and a resume --------
+    t0 = time.perf_counter()
+    run = out / 'run_mesh_window'
+    every = 4
+    argv = ['-d', device.type, '-bs', '8', '-mbs', '8', '-ne',
+            str(MESH_STEPS), '--preprocessed-dataset-path',
+            str(out / 'shards'), '--checkpointing_interval', str(every),
+            '--permanent_interval', str(every), '-vp', str(every),
+            '--event-capacity', str(2 * capacity), '--mesh', 'data:2',
+            '--device-queue-window', str(MESH_WINDOW)] + RECIPE_FLAGS
+    before = launch_counts()
+    t_main = time.perf_counter()
+    ranks = cli.main(['-m', str(run)] + argv)
+    main_s = time.perf_counter() - t_main
+    if launch_counts() != before:
+        raise AssertionError('[30] (c) the launcher ran kernels itself')
+    check_run_dir('[30] (c)', run, ranks, MESH_STEPS, 8)
+    losses = read_scalars(run / 'log').get('General/Train loss', [])
+    if len(losses) != MESH_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f'[30] (c) losses {losses}')
+    launches['mesh_window_main'] = check_rank_launches('[30] (c)', ranks,
+                                                       MESH_STEPS)
+    print(f'[30] (c) train.main() --mesh data:2 --device-queue-window '
+          f'{MESH_WINDOW} over phase 14\'s shards, {MESH_STEPS} recipe '
+          f'steps in windows of {MESH_WINDOW} with checkpoints and sharded '
+          'validation every 4: losses ' + ' '.join(f'{v:.5f}' for v in losses)
+          + f'; {main_s:.2f} s in all against phase 24\'s '
+          f'{per_step_main_s:.2f} s one step at a time; launches '
+          f'{launches["mesh_window_main"]}; card: {card}')
+    numbers['main_s'] = {'windows': main_s, 'per_step': per_step_main_s}
+    resume_against('[30] (c)', out, run, argv, MESH_STEPS, every)
+    print(f'[30] (c) {time.perf_counter() - t0:.2f} s')
+    print(f'[30] {time.perf_counter() - t_phase:.2f} s')
     return launches, numbers
 
 
@@ -3935,20 +4242,30 @@ def main():
             Path(out), capacity, device, card, counters, raw_main[0])
         window.update(numbers)
 
+        # --- 30. the window on a mesh: a one-rank NCCL group's graph
+        # replays, two gloo ranks' eager windows, main() --mesh with
+        # windows ---------------------------------------------------------
+        paths, mesh_window = mesh_window_phase(
+            Path(out), collated, capacity, device, card, counters, shapes,
+            mesh['mesh_main_s'])
+        launches.update(paths)
+
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
     # dense main() and its bare step, the host-image run()s, the ranks'
     # sharded steps, the spawned meshes' main() and the multi-host main(),
     # the visualize CLI's EVFlowNet and RecurrentFlowNet runs, the
-    # accuracy scripts' training and evaluation children, and the recipe's
-    # window steps as graph replays and main() with the default windows
+    # accuracy scripts' training and evaluation children, the recipe's
+    # window steps as graph replays and main() with the default windows,
+    # and the recipe's sharded windows as a one-rank NCCL group's graph
+    # replays and the spawned mesh's main() with windows
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
              'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
              'hosts_main', 'visualize', 'recurrent_visualize', 'accuracy',
-             'window', 'window_main')
+             'window', 'window_main', 'mesh_window', 'mesh_window_main')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -3966,6 +4283,7 @@ def main():
     print(json.dumps({'visualize': vis}))
     print(json.dumps({'accuracy': accuracy}))
     print(json.dumps({'window': window}))
+    print(json.dumps({'mesh_window': mesh_window}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

@@ -17,7 +17,9 @@ the card of its place among them (``cuda:<local rank % cards>``) and
 picks the backend by one rule, printed once by rank 0: NCCL where every
 rank of a host has a card of its own, gloo on the CPU and where ranks
 share a card (NCCL refuses two ranks on one device; gloo reduces and
-broadcasts CUDA tensors through the host).
+broadcasts CUDA tensors through the host).  The backend and the device
+also decide how a device-queue window runs (``window_rule``), which rank 0
+prints beside the backend.
 """
 import datetime
 import math
@@ -90,7 +92,50 @@ def initialize(address: str, world_size: int, rank: int,
     if rank == 0:
         print(f'torch.distributed: {backend} backend, {world_size} ranks '
               f'({why}); rank 0 on {device}')
+        print(f'device-queue windows: {window_rule(backend, device)}')
     return device
+
+
+def window_runs_as_graph(backend: str, device) -> bool:
+    """Whether a staged training window on a mesh is one CUDA graph replay:
+    under NCCL on a card, whose all-reduces a capture can hold.  A gloo
+    all-reduce of a card's tensor syncs through the host, which a graph
+    cannot capture, so under gloo (and on the CPU) a window runs eagerly;
+    never as the fallback of a failed capture."""
+    return backend == 'nccl' and torch.device(device).type == 'cuda'
+
+
+def window_rule(backend: str, device) -> str:
+    """How a window runs under ``backend`` on ``device``, in words."""
+    if window_runs_as_graph(backend, device):
+        return ('a window is one CUDA graph replay, its NCCL all-reduces '
+                'captured inside')
+    if torch.device(device).type == 'cuda':
+        return ('a window runs its steps eagerly in one call (a gloo '
+                'all-reduce syncs through the host, which a graph cannot '
+                'capture)')
+    return 'a window runs its steps eagerly in one call on the CPU'
+
+
+def check_windows_agree(group):
+    """``check(n_valid, n_skipped)`` for ``train``'s windows: raises unless
+    every rank of ``group`` (a gloo group) staged a window of as many
+    batches after as many skipped ones.  A rank that skipped a batch
+    alone would pair its collectives with the others' next step."""
+    def check(n_valid, n_skipped):
+        mine = torch.tensor([n_valid, n_skipped, -n_valid, -n_skipped])
+        extremes = mine.clone()
+        dist.all_reduce(extremes, op=dist.ReduceOp.MAX, group=group)
+        if not torch.equal(extremes[:2], -extremes[2:]):
+            raise RuntimeError(
+                f'the ranks staged different windows: this rank {n_valid} '
+                f'batches after {n_skipped} skipped, the ranks\' largest '
+                f'{extremes[:2].tolist()} and smallest '
+                f'{(-extremes[2:]).tolist()}; a shard over its capacity '
+                'was skipped on one rank alone (raise --event-capacity, or '
+                'train over preprocessed shards, whose skip rule every rank '
+                'shares)')
+    return check
 
 
 def maybe_initialize_distributed(args, device):

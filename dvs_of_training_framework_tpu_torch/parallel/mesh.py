@@ -33,8 +33,10 @@ import torch.distributed as dist
 from ..data.schema import Batch, EventBuffer, layout_sample_slots, \
     pad_events
 from ..losses import combined_loss
-from ..training.state import make_loss_fn, make_update_step
+from ..training.state import (make_fused_update_step, make_loss_fn,
+                              make_update_step, window_slots)
 from ..utils.timer import FakeTimer
+from .distributed import window_runs_as_graph
 
 AXES = ('data', 'event')
 
@@ -100,6 +102,8 @@ class MeshGroups:
     objects, ``event_host_group`` and ``world_host_group`` (the compute
     groups themselves where the backend is gloo).  Every rank creates
     every group, in the same order, as ``new_group`` requires.
+    ``window_graph`` says how a staged window runs
+    (``distributed.window_rule``).
 
     Args:
         mesh: the MeshSpec; its size must be the world size.
@@ -133,6 +137,10 @@ class MeshGroups:
                 self.event_group, self.event_host_group = group, host
         self.world_host_group = (dist.group.WORLD if gloo
                                  else dist.new_group(backend='gloo'))
+        # a staged window is one graph replay under NCCL; under gloo or on
+        # the CPU it runs eagerly (distributed.window_rule)
+        self.window_graph = window_runs_as_graph(dist.get_backend(),
+                                                 self.device)
         # the rank that reads the host batches of this data shard
         self.event_src = mesh.rank_of(self.data_index, 0)
 
@@ -356,24 +364,20 @@ def _restore_terms(terms, values):
     return tuple([next(it) for _ in group] for group in terms)
 
 
-def make_sharded_train_step(model, evaluator, optimizer, weights,
-                            accumulation_steps: int, groups: MeshGroups,
-                            is_raw: bool = True, event_axis: bool = False,
-                            timers=None):
-    """The training step of one rank (``make_sharded_train_step`` of the
-    JAX package; signature and return of ``state.make_train_step``).
-
-    ``step_fn(state, batch) -> (state, (loss, terms))`` takes this rank's
-    device batch (``shard_of`` a ``split_batch_for_mesh`` output).  The
-    gradients, the loss and the terms are averaged over the data group,
-    then accumulated and applied as ``make_train_step`` does, so every
-    rank holds the same parameters after the step.  With ``event_axis``
-    the batch carries this rank's slice of the events: the grid is the
-    sum of the event group's partial grids, and the quantization layer's
-    gradients are summed over the event group before the data mean.
-    Unused parameters get zero gradients (``materialize_grads``), as in
-    the single-device step.  ``timers('all_reduce')`` spans each
-    collective.
+def make_sharded_grad_fn(model, evaluator, weights, groups: MeshGroups,
+                         is_raw: bool = True, event_axis: bool = False,
+                         timers=None):
+    """One rank's ``grad_fn(batch) -> (loss, terms, {name: grad})`` (the
+    role of the JAX package's ``step_fn._single``): the loss and the
+    gradients of this rank's device batch (``shard_of`` a
+    ``split_batch_for_mesh`` output), averaged with the terms over the
+    data group in one all-reduce.  With ``event_axis`` the batch carries
+    this rank's slice of the events: the grid is the sum of the event
+    group's partial grids, and the quantization layer's gradients are
+    summed over the event group before the data mean.  Unused parameters
+    get zero gradients (``materialize_grads``), as in the single-device
+    step.  ``timers('all_reduce')`` spans each collective; it synchronises
+    the device, so a body captured in a CUDA graph takes ``FakeTimer``.
     """
     if event_axis and not is_raw:
         raise ValueError('event-axis sharding requires raw events')
@@ -422,7 +426,54 @@ def make_sharded_train_step(model, evaluator, optimizer, weights,
         return (loss, _restore_terms(terms, rest[:n_terms]),
                 dict(zip(named, rest[n_terms:])))
 
-    return make_update_step(grad_fn, named, optimizer, accumulation_steps)
+    return grad_fn
+
+
+def make_sharded_train_step(model, evaluator, optimizer, weights,
+                            accumulation_steps: int, groups: MeshGroups,
+                            is_raw: bool = True, event_axis: bool = False,
+                            timers=None, window: int = 0):
+    """The training step of one rank (``make_sharded_train_step`` of the
+    JAX package; signature and return of ``state.make_train_step``).
+
+    ``step_fn(state, batch) -> (state, (loss, terms))`` takes this rank's
+    device batch.  The gradients, the loss and the terms are averaged
+    over the data group (``make_sharded_grad_fn``), then accumulated and
+    applied as ``make_train_step`` does, so every rank holds the same
+    parameters after the step.  With ``window = K > 0`` the step takes
+    this rank's staged ``Window`` of K batches and steps its batch
+    ``micro_step % K``, as the JAX package's ``step_fn`` does.
+    """
+    grad_fn = make_sharded_grad_fn(model, evaluator, weights, groups,
+                                   is_raw, event_axis, timers)
+    return window_slots(make_update_step(
+        grad_fn, dict(model.named_parameters()), optimizer,
+        accumulation_steps), window)
+
+
+def make_sharded_fused_window_step(model, evaluator, optimizer, weights,
+                                   accumulation_steps: int,
+                                   groups: MeshGroups, window: int,
+                                   is_raw: bool = True,
+                                   event_axis: bool = False):
+    """K sharded training steps in one call over this rank's staged window
+    of K batches (``make_sharded_fused_window_step`` of the JAX package).
+
+    Returns ``fused(state, staged) -> (state, (loss[K], terms))``, the
+    contract of ``state.make_fused_window_step``, around the gradients of
+    ``make_sharded_grad_fn``; ``window % accumulation_steps`` must be 0.
+    How a window runs is the rule of ``groups.window_graph``: under NCCL
+    (one rank a card) one ``WindowGraph`` replay whose capture holds the
+    K steps with their all-reduces; under gloo, or on the CPU, the same
+    body eagerly over the staged window, in one call.  The all-reduces are
+    not timed.
+    """
+    grad_fn = make_sharded_grad_fn(model, evaluator, weights, groups,
+                                   is_raw, event_axis)
+    return make_fused_update_step(grad_fn, model, optimizer,
+                                  accumulation_steps, window,
+                                  len(evaluator.shapes),
+                                  graph=groups.window_graph)
 
 
 def make_sharded_eval_step(model, evaluator, weights, groups: MeshGroups,

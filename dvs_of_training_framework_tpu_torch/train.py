@@ -32,8 +32,12 @@ one call, a replay of one CUDA graph on a card.  Validation stages
 ``--validation-window`` batches a call (8 by default, 0 for one at a
 time).  A resumed run starts a new window at its checkpoint, so a window
 that divides the checkpoint and validation cadence keeps every window
-whole.  On a mesh the windows are not ported yet: it runs per step and
-says so in one line.
+whole.  On a mesh every rank stages windows of its own pieces, and a
+window runs by the backend's rule, which rank 0 prints beside the
+backend: one CUDA graph replay with its NCCL all-reduces inside under
+NCCL, its steps eagerly in one call under gloo and on the CPU
+(``parallel.window_rule``); the ranks check that they staged the same
+windows.  Validation on a mesh runs per batch, as in the JAX package.
 
 Several devices, one process each (``parallel/``):
 
@@ -67,10 +71,11 @@ from .losses import LOSS_PRECISIONS, MultiScaleLoss
 from .models import init_model, load_model_class
 from .ops import launch_counts
 from .parallel import (MeshGroups, ShardedBatchSkipper, broadcast_batches,
-                       check_replicas, distributed_spec, initialize,
-                       make_sharded_eval_step, make_sharded_train_step,
-                       maybe_initialize_distributed, parse_mesh, shard_of,
-                       split_batch_for_mesh)
+                       check_replicas, check_windows_agree, distributed_spec,
+                       initialize, make_sharded_eval_step,
+                       make_sharded_fused_window_step,
+                       make_sharded_train_step, maybe_initialize_distributed,
+                       parse_mesh, shard_of, split_batch_for_mesh)
 from .parallel.distributed import free_port
 from .training import (construct_optimizer, create_train_state,
                        current_learning_rates, make_eval_step,
@@ -111,11 +116,14 @@ def parse_args(argv):
     for dest in ('device_queue_window', 'validation_window'):
         if getattr(args, dest) < 0:
             raise ValueError(f'--{dest.replace("_", "-")} must be 0 or more')
-    if mesh is not None and (args.device_queue_window
-                             or args.validation_window):
-        print(f'--device-queue-window {args.device_queue_window}, '
-              f'--validation-window {args.validation_window}: not yet '
-              'ported on a mesh, runs per step')
+    if mesh is not None and args.device_queue_window:
+        print(f'--device-queue-window {args.device_queue_window} on a mesh: '
+              'each rank stages its own windows, run as the backend\'s '
+              'rule says (printed beside the backend)')
+    if mesh is not None and args.validation_window \
+            and not args.skip_validation:
+        print(f'--validation-window {args.validation_window}: validation '
+              'on a mesh runs per batch')
     if mesh is not None:
         if args.mbs % mesh.data:
             raise ValueError(f'-mbs {args.mbs} is not divisible by the '
@@ -242,15 +250,17 @@ def run(args, train_loader_factory, val_loader_factory, logger,
     # dense training (--ev_images) validates raw, as the JAX package does
     prepare_batch = val_prepare_batch = None
     eval_step = make_eval_step(model, evaluator, args.loss_weights)
-    # the device queue, on one device only
-    window = args.device_queue_window if groups is None else 0
+    # the device queue; validation on a mesh runs per batch, as in the JAX
+    # package (train_flownet.py wires no mesh-windowed validation)
+    window = args.device_queue_window
     val_window = args.validation_window if groups is None else 0
-    train_step_fused = fused_eval_step = None
+    fused = window > 0 and window % args.accum_step == 0
+    train_step_fused = fused_eval_step = window_check = None
     if groups is None:
         train_step = make_train_step(model, evaluator, optimizer,
                                      args.loss_weights, args.accum_step,
                                      is_raw=args.is_raw, window=window)
-        if window > 0 and window % args.accum_step == 0:
+        if fused:
             train_step_fused = make_fused_window_step(
                 model, evaluator, optimizer, args.loss_weights,
                 args.accum_step, window, is_raw=args.is_raw)
@@ -258,10 +268,18 @@ def run(args, train_loader_factory, val_loader_factory, logger,
             fused_eval_step = make_fused_eval_step(
                 model, evaluator, args.loss_weights, val_window)
     else:
+        event_axis = groups.mesh.event > 1
         train_step = make_sharded_train_step(
             model, evaluator, optimizer, args.loss_weights, args.accum_step,
-            groups, is_raw=args.is_raw, event_axis=groups.mesh.event > 1,
-            timers=timers)
+            groups, is_raw=args.is_raw, event_axis=event_axis,
+            timers=timers, window=window)
+        if fused:
+            train_step_fused = make_sharded_fused_window_step(
+                model, evaluator, optimizer, args.loss_weights,
+                args.accum_step, groups, window, is_raw=args.is_raw,
+                event_axis=event_axis)
+        if window > 0:
+            window_check = check_windows_agree(groups.world_host_group)
 
         def prepare_batch(collated, capacity):
             # this rank's batch is its data shard; cut its event slice
@@ -269,7 +287,7 @@ def run(args, train_loader_factory, val_loader_factory, logger,
                 collated, 1, shard_capacity(capacity, groups),
                 event_shards=groups.mesh.event,
                 sequence_length=sequence_length), 0,
-                groups.event_index if groups.mesh.event > 1 else None)
+                groups.event_index if event_axis else None)
 
         if sharded_validation(groups):
             eval_step = make_sharded_eval_step(model, evaluator,
@@ -347,7 +365,8 @@ def run(args, train_loader_factory, val_loader_factory, logger,
             prepare_batch=prepare_batch,
             samples_scale=1 if groups is None else groups.mesh.data,
             window=window,
-            train_step_fused=train_step_fused)
+            train_step_fused=train_step_fused,
+            window_check=window_check)
 
     if groups is not None:
         check_replicas(model, groups, 'after training')

@@ -16,7 +16,10 @@ window.  On a card a call is one replay of a CUDA graph captured over the
 same K-step body (``WindowGraph``): the window is copied into the graph's
 static buffer, the optimizer's scalars for its K updates into its static
 table, and the per-step losses come back from its static output.  On the
-CPU the same body runs the K steps eagerly, one after the other.
+CPU the same body runs the K steps eagerly, one after the other.  The
+step bodies take a ``grad_fn``: ``make_update_step`` one step's,
+``make_fused_update_step`` a window's, so the sharded steps of
+``parallel/mesh.py`` reuse both with their reduced gradients.
 """
 import dataclasses
 import time
@@ -121,9 +124,15 @@ def make_train_step(model, evaluator, optimizer, weights,
     ``micro_step % K``.
     """
     named = dict(model.named_parameters())
-    step = make_update_step(
+    return window_slots(make_update_step(
         _make_grad_fn(make_loss_fn(model, evaluator, weights, is_raw), named),
-        named, optimizer, accumulation_steps)
+        named, optimizer, accumulation_steps), window)
+
+
+def window_slots(step, window: int):
+    """``step`` itself for ``window`` 0; else a step that takes a staged
+    ``Window`` of ``window`` batches and steps its batch
+    ``micro_step % window``."""
     if not window:
         return step
 
@@ -246,15 +255,31 @@ def make_fused_window_step(model, evaluator, optimizer, weights,
     captures the parameters, the optimizer state and the accumulator in
     place; on the CPU the body runs eagerly.
     """
+    named = dict(model.named_parameters())
+    return make_fused_update_step(
+        _make_grad_fn(make_loss_fn(model, evaluator, weights, is_raw), named),
+        model, optimizer, accumulation_steps, window,
+        len(evaluator.shapes))
+
+
+def make_fused_update_step(grad_fn, model, optimizer,
+                           accumulation_steps: int, window: int, scales: int,
+                           graph: bool = True):
+    """The K-step body of ``make_fused_window_step`` around ``grad_fn(batch)
+    -> (loss, terms, {name: grad})``, as ``make_update_step`` is the
+    one-step body around it (the sharded steps of ``parallel/mesh.py``
+    give it their reduced gradients).  ``scales`` is the loss's scale
+    count.  With ``graph`` a window on a card is one ``WindowGraph``
+    replay; without it, and on the CPU, the body runs eagerly over the
+    staged window, its per-step values kept on the window's device.
+    """
     if window <= 0 or window % accumulation_steps:
         raise ValueError(f'a fused window of {window} steps needs whole '
                          f'optimizer steps of {accumulation_steps}')
     named = dict(model.named_parameters())
-    grad_fn = _make_grad_fn(make_loss_fn(model, evaluator, weights, is_raw),
-                            named)
     inv = 1.0 / accumulation_steps
     updates = window // accumulation_steps
-    scales = len(evaluator.shapes)
+    width = 1 + 3 * scales
 
     def make_body(state):
         def body(batch, table, out, slots):
@@ -288,13 +313,13 @@ def make_fused_window_step(model, evaluator, optimizer, weights,
             _accumulator(state, named)
         table = optimizer.scalar_table(updates, device)
         body = make_body(state)
-        if device.type == 'cuda':
-            graph = _graph_for(graphs, staged, lambda: WindowGraph(
-                body, staged, table, 1 + 3 * scales,
-                warmup=accumulation_steps, state=state_tensors(state)))
-            values = graph(staged, table, state_tensors(state))
+        if graph and device.type == 'cuda':
+            replay = _graph_for(graphs, staged, lambda: WindowGraph(
+                body, staged, table, width, warmup=accumulation_steps,
+                state=state_tensors(state)))
+            values = replay(staged, table, state_tensors(state))
         else:
-            values = torch.empty((window, 1 + 3 * scales))
+            values = torch.empty((window, width), device=device)
             body(staged.batch, table, values, range(window))
         optimizer.advance(updates)
         state.micro_step += window

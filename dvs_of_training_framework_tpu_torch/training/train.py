@@ -21,8 +21,10 @@ as staged windows of K (``data/device_queue.py``) and runs a window that
 covers whole optimizer steps, with no hook due inside it, as one call of
 ``train_step_fused`` (``state.make_fused_window_step``: one CUDA graph
 replay on a card); any other window, a partial one at the end or one a
-hook cuts, runs ``train_step`` slot by slot.  ``validate_windowed`` does
-the same for validation (``--validation-window``).  The logged values
+hook cuts, runs ``train_step`` slot by slot.  A rank of a mesh stages
+windows of its own pieces and steps them with the sharded steps
+(``parallel/mesh.py``).  ``validate_windowed`` does the same for
+validation on one device (``--validation-window``).  The logged values
 equal the per-batch loop's.
 """
 import itertools
@@ -101,7 +103,8 @@ def train(train_step,
           prepare_batch=None,
           samples_scale: int = 1,
           window: int = 0,
-          train_step_fused=None):
+          train_step_fused=None,
+          window_check=None):
     """Run the training loop.
 
     Args:
@@ -138,11 +141,20 @@ def train(train_step,
             a window and ``train_step`` (built with the same ``window``,
             ``state.make_train_step``) steps slot ``micro_step % K``.
             The state's ``micro_step`` must start at a multiple of K,
-            which holds for a fresh or resumed state.  One device only:
-            no ``prepare_batch``.
+            which holds for a fresh or resumed state.  On a mesh a rank's
+            window is the stack (``stack_batches``) of its own
+            ``prepare_batch`` pieces, uploaded to its own device: in the
+            JAX package's terms, the process's local slice of
+            ``make_global_batch(window=True)``, so no ``place_window`` is
+            needed.
         train_step_fused: optional ``(state, window) -> (state,
-            (loss[K], terms))`` (``state.make_fused_window_step``) that
-            runs a whole window in one call.
+            (loss[K], terms))`` (``state.make_fused_window_step``,
+            ``parallel.make_sharded_fused_window_step``) that runs a whole
+            window in one call.
+        window_check: optional ``(n_valid, n_skipped) -> None`` called
+            with every staged window before it is stepped; on a mesh
+            ``parallel.check_windows_agree`` raises unless every rank
+            staged the same, so the ranks' collectives pair the same steps.
 
     Returns:
         (state, samples_passed)
@@ -324,9 +336,6 @@ def train(train_step,
                           'all_reduce'] + list(hooks))
 
     if window > 0:
-        if prepare_batch is not None:
-            raise ValueError('the device queue runs on one device: a mesh '
-                             'prepare_batch takes no window')
         # the ``micro_step % window`` slot assumes the loop enters
         # window-aligned; a state resumed mid-window would silently step
         # the wrong staged batch
@@ -343,6 +352,8 @@ def train(train_step,
         done = False
         for host_batches, device_window, n_valid, skipped in stream:
             timers('batch_construction').stop()
+            if window_check is not None:
+                window_check(n_valid, len(skipped))
             for host_batch in skipped:
                 report_skip(host_batch)
             remaining = num_steps * accumulation_steps - global_step

@@ -10,7 +10,8 @@ mesh and the multi-host flags), the refusal of a mesh the batch or the
 dense mode cannot take, the refusal of ``-d cuda`` without a card, and
 one ignored TPU-only flag that logs its line.  The runs take the device
 queue with windows of 1 step (the cadence of their checkpoints), and a
-mesh with a window logs that it runs per step.
+mesh with windows logs that its ranks stage their own, run by the
+backend's rule, and that its validation runs per batch.
 """
 import os
 from pathlib import Path
@@ -185,15 +186,17 @@ def test_train_cli_ignores_tpu_only_flag(tmp_path, capsys):
 @pytest.mark.parametrize('flags, lines', [
     (['--device-queue-window', '4'], []),
     (['--mesh', 'data:2', '--device-queue-window', '4'],
-     ['--device-queue-window 4, --validation-window 8: not yet ported on '
-      'a mesh, runs per step']),
+     ['--device-queue-window 4 on a mesh: each rank stages its own windows, '
+      'run as the backend\'s rule says (printed beside the backend)',
+      '--validation-window 8: validation on a mesh runs per batch']),
     (['--mesh', 'data:2', '--device-queue-window', '0',
       '--validation-window', '0'], []),
 ])
 def test_train_cli_logs_the_windows_on_a_mesh(tmp_path, capsys, flags,
                                               lines):
-    """The windows are no TPU-only option; on a mesh they are not ported
-    yet, and a window other than 0 says so in one line."""
+    """The windows are no TPU-only option; on a mesh a training window
+    says in one line how it runs, and a validation window in another
+    that validation stays per batch."""
     args = cli.parse_args(['-m', str(tmp_path)] + BASE + flags)
     assert args.device_queue_window == int(flags[flags.index(
         '--device-queue-window') + 1])
