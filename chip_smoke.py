@@ -235,7 +235,18 @@ Phases:
     bit for bit, both ranks, timed in turns; (c) ``train.main()`` with
     ``--mesh data:2 --device-queue-window 4`` as phase 24, 12 steps
     over phase 14's shards, against phase 24's seconds, and two copies cut
-    back to checkpoint 8 resumed and held to phase 12's rule.
+    back to checkpoint 8 resumed and held to phase 12's rule;
+31. oversized batches skipped unread on one rank: RecurrentFlowNet's
+    recipe through ``train.main()`` over phase 18's 2-element shards (96
+    samples, 12 batch positions of 8) at the median of the positions'
+    recorded event counts, so that some fit and some overflow, 12 steps in
+    windows of 4, twice: over the reader ``read_train`` builds, which
+    skips a batch from the shards' recorded counts without reading it,
+    and over the bare reader, which decodes every batch and the loop
+    drops those over the capacity; the losses, the ``General/skipped
+    batches`` scalars, the parameters and the optimizer state equal bit
+    for bit, the launches equal; each way's ms a skipped batch, ms
+    reading a trained batch, ms a trained step and seconds.
 
 Every phase from 17 on prints its own seconds.  A window (phases 11, 18,
 21, 28, 29, 30) runs as one CUDA graph replay where it covers whole
@@ -3774,6 +3785,152 @@ def window_main_phase(out, capacity, device, card, counters, main_ms):
                     'main_window_ms': window_ms, 'phase14_main_ms': main_ms}
 
 
+class TimedReader:
+    """A training stream that times each item it hands out: the seconds
+    of each batch the loop trains on and of each it skips (a skip record
+    of ``ShardedBatchSkipper``, or a decoded batch over ``capacity``)."""
+
+    def __init__(self, loader, capacity):
+        self.loader, self.capacity = loader, capacity
+        self.trained, self.skipped = [], []
+
+    def __iter__(self):
+        from dvs_of_training_framework_tpu_torch.training.train import \
+            batch_num_events
+        items = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(items)
+            except StopIteration:
+                return
+            seconds = time.perf_counter() - t0
+            skip = batch_num_events(batch) > self.capacity
+            (self.skipped if skip else self.trained).append(seconds)
+            yield batch
+
+    def close(self):
+        close = getattr(self.loader, 'close', None)
+        if close is not None:
+            close()
+
+
+def skip_phase(out, device, card, counters):
+    """Phase 31: RecurrentFlowNet's recipe through ``train.main()`` over
+    phase 18's 2-element shards at a capacity that skips about half the
+    batch positions, with the skip from the shards' recorded event counts
+    (the reader ``read_train`` builds) and over the bare reader (decode,
+    then skip): losses, skip scalars, parameters and optimizer state bit
+    for bit.  Returns the metadata arm's launch counts and the numbers."""
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data.preprocessed import \
+        per_sample_event_counts
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+    t_phase = time.perf_counter()
+    shards = out / 'shards_pairs'
+    batch, every = 8, 4
+    counts = per_sample_event_counts(shards)
+    positions = counts.size // batch
+    sums = counts[:positions * batch].reshape(positions, batch).sum(1)
+    capacity = int(statistics.median(sums.tolist()))
+    fits = int((sums <= capacity).sum())
+    print(f'[31] phase 18\'s 2-element shards: {counts.size} samples, '
+          f'{positions} batch positions of {batch}, recorded events '
+          f'{sorted(sums.tolist())}; capacity {capacity} (their median): '
+          f'{fits} fit, {positions - fits} overflow')
+    if counts.size % batch or not 0 < fits < positions:
+        raise AssertionError(f'[31] {counts.size} samples, {fits} of '
+                             f'{positions} positions fit {capacity}')
+    pairs = ['--min-sequence-length', '2', '--max-sequence-length', '2']
+    skipper = cli.ShardedBatchSkipper
+    arms = {}
+    for name in ('metadata', 'decoded'):
+        run = out / f'run_skip_{name}'
+        readers = []
+
+        def timed(loader, *args, _name=name, **kwargs):
+            if _name == 'metadata':
+                loader = skipper(loader, *args, **kwargs)
+            readers.append(TimedReader(loader, capacity))
+            return readers[-1]
+
+        argv = ['-m', str(run), '-d', device.type, '-bs', str(batch),
+                '-mbs', str(batch), '-ne', str(MAIN_STEPS),
+                '--preprocessed-dataset-path', str(shards),
+                '--checkpointing_interval', str(every),
+                '--permanent_interval', str(every), '--skip-validation',
+                '--event-capacity', str(capacity), '--device-queue-window',
+                str(every), '--flownet_path', 'RecurrentFlowNet'] \
+            + pairs + RECIPE_FLAGS
+        clock = LoopClock()
+        run_fn = cli.run
+        cli.run = lambda *a, **k: run_fn(*a, timers=clock, **k)
+        cli.ShardedBatchSkipper = timed
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            cli.main(argv)
+        finally:
+            cli.run, cli.ShardedBatchSkipper = run_fn, skipper
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        (reader,) = readers
+        scalars = read_scalars(run / 'log')
+        arms[name] = SimpleNamespace(
+            run=run, seconds=seconds, counts=read_counts(counters),
+            reader=reader, step_ms=statistics.median(clock.window_ms(every)),
+            losses=scalars.get('General/Train loss', []),
+            skips=scalars.get('General/skipped batches', []),
+            state=Serializer(run).read_state_dict(MAIN_STEPS))
+    meta, decoded = arms['metadata'], arms['decoded']
+    for name, arm in arms.items():
+        skip_ms = 1e3 * statistics.mean(arm.reader.skipped)
+        read_ms = 1e3 * statistics.mean(arm.reader.trained)
+        print(f'[31] {name}: {MAIN_STEPS} recipe steps in windows of '
+              f'{every}, {len(arm.reader.trained)} batches trained and '
+              f'{len(arm.reader.skipped)} skipped; {skip_ms:.4f} ms a '
+              f'skipped batch, {read_ms:.3f} ms reading a trained one, '
+              f'{arm.step_ms:.3f} ms a trained step (windows after the '
+              f'first, hooks excluded); main() {arm.seconds:.2f} s; '
+              f'launches {arm.counts}; card: {card}')
+        arm.skip_ms, arm.read_ms = skip_ms, read_ms
+    trained = MAIN_STEPS + 1          # and a warm-up step before the capture
+    if (len(meta.losses) != MAIN_STEPS
+            or not np.isfinite(meta.losses).all() or not meta.skips
+            or meta.counts != decoded.counts
+            or meta.counts['voxelize_bwd'] != trained
+            or meta.counts['voxelize_fwd'] != trained
+            or meta.counts['kernel_mlp_fwd'] != trained
+            or meta.counts['warp_bwd'] != 4 * trained):
+        raise AssertionError(f'[31] losses {meta.losses}, skips '
+                             f'{meta.skips}, launches {meta.counts} and '
+                             f'{decoded.counts}')
+    # the same run: every logged value, parameter and optimizer entry
+    same = [meta.losses == decoded.losses, meta.skips == decoded.skips]
+    params = flat_state(meta.state['model'])
+    others = flat_state(decoded.state['model'])
+    entries = flat_state(meta.state['optimizer'])
+    other_entries = flat_state(decoded.state['optimizer'])
+    same.append(params.keys() == others.keys() and all(
+        bits_equal(v, others[k]) for k, v in params.items()))
+    same.append(entries.keys() == other_entries.keys() and all(
+        bits_equal(v, other_entries[k]) for k, v in entries.items()))
+    print(f'[31] metadata against decoded: {len(meta.losses)} losses, '
+          f'{len(meta.skips)} skip scalars, {len(params)} parameters, '
+          f'{len(entries)} optimizer entries; equal bit for bit: {same}')
+    if not all(same):
+        raise AssertionError('[31] the metadata skip changed the run')
+    print(f'[31] {time.perf_counter() - t_phase:.2f} s')
+    return meta.counts, {
+        'capacity': capacity, 'fit': fits, 'positions': positions,
+        **{f'{name}_{key}': getattr(arm, key) for name, arm in arms.items()
+           for key in ('skip_ms', 'read_ms', 'step_ms', 'seconds')},
+        'skipped': len(meta.reader.skipped),
+        'trained_batches': len(meta.reader.trained)}
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4250,6 +4407,10 @@ def main():
             mesh['mesh_main_s'])
         launches.update(paths)
 
+        # --- 31. oversized batches skipped unread on one rank -------------
+        launches['skip_main'], skip = skip_phase(Path(out), device, card,
+                                                 counters)
+
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
@@ -4258,14 +4419,16 @@ def main():
     # the visualize CLI's EVFlowNet and RecurrentFlowNet runs, the
     # accuracy scripts' training and evaluation children, the recipe's
     # window steps as graph replays and main() with the default windows,
-    # and the recipe's sharded windows as a one-rank NCCL group's graph
-    # replays and the spawned mesh's main() with windows
+    # the recipe's sharded windows as a one-rank NCCL group's graph
+    # replays and the spawned mesh's main() with windows, and
+    # RecurrentFlowNet's main() skipping oversized batches unread
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
              'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
              'hosts_main', 'visualize', 'recurrent_visualize', 'accuracy',
-             'window', 'window_main', 'mesh_window', 'mesh_window_main')
+             'window', 'window_main', 'mesh_window', 'mesh_window_main',
+             'skip_main')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -4284,6 +4447,7 @@ def main():
     print(json.dumps({'accuracy': accuracy}))
     print(json.dumps({'window': window}))
     print(json.dumps({'mesh_window': mesh_window}))
+    print(json.dumps({'skip': skip}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

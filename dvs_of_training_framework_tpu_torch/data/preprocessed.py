@@ -15,13 +15,14 @@ none where it is not (``utils/progress.py``), so the module imports and
 reads without h5py, PyYAML and tqdm.
 """
 import json
+import math
 from pathlib import Path
 
 import numpy as np
 
 from . import codec, store
 from ..utils.progress import progress as show
-from .file_iterators import create_file_iterator
+from .file_iterators import NonBlockingFileIterator, create_file_iterator
 
 
 def _shard_sample_count(shard_path):
@@ -123,6 +124,46 @@ def max_batch_events(path, batch_size: int) -> int:
     return int((csum[batch_size:] - csum[:-batch_size]).max())
 
 
+def batch_events(per_sample_events, global_batch: int,
+                 n_shards: int = 1) -> np.ndarray:
+    """The events of the fullest of the ``n_shards`` equal slices of each
+    global batch position of a stream that cycles ``per_sample_events``:
+    entry k for stream samples ``[k * global_batch, (k + 1) *
+    global_batch)`` modulo the stream's length.  The positions repeat
+    after the result's length."""
+    counts = np.asarray(per_sample_events, np.int64)
+    length = counts.size
+    assert global_batch <= length, \
+        f'global batch {global_batch} exceeds dataset ({length})'
+    csum = np.concatenate([[0], np.cumsum(np.tile(counts, 2))])
+    positions = length // math.gcd(length, global_batch)
+    spd = global_batch // n_shards
+    lo = (np.arange(positions)[:, None] * global_batch % length
+          + np.arange(n_shards) * spd)
+    return (csum[lo + spd] - csum[lo]).max(axis=1)
+
+
+def stream_position(per_sample, batch_size, capacity, samples_kept):
+    """The stream's sample index after the batches that kept
+    ``samples_kept`` samples, the skipped ones among them: batches of
+    ``batch_size`` consecutive samples from index 0, wrapping at the end
+    of ``per_sample`` (each sample's event count), each skipped when it
+    holds more than ``capacity`` events.  A bake's resume and a training
+    run's: a checkpoint's ``samples_passed`` counts the trained batches
+    only, and reading on from it would read again the batches that the
+    run skipped (the JAX package's training and bake do)."""
+    kept = -(-samples_kept // batch_size)
+    if kept == 0:
+        return 0
+    events = batch_events(per_sample, batch_size)
+    fits = np.flatnonzero(events <= capacity)
+    if fits.size == 0:
+        raise ValueError(f'no batch of {batch_size} samples fits '
+                         f'{capacity} events')
+    cycles, k = divmod(kept - 1, fits.size)
+    return (cycles * events.size + int(fits[k]) + 1) * batch_size
+
+
 class PreprocessedDataloader:
     """Iterates decoded batches out of encoded shards.
 
@@ -188,6 +229,13 @@ class PreprocessedDataloader:
 
     def __iter__(self):
         return self
+
+    @property
+    def in_order(self) -> bool:
+        """Does it serve the stream in file order?  A non-blocking cache
+        (``--cache-dir`` with a cache smaller than the set and
+        ``--process-only-once`` unset) re-serves cached files instead."""
+        return not isinstance(self.iterator, NonBlockingFileIterator)
 
     def _advance_shard(self):
         self.current_file.release()

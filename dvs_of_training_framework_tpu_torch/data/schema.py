@@ -127,6 +127,13 @@ def slice_window_batch(batch: Batch, idx: int) -> Batch:
                  size=batch.size)
 
 
+# The key of the record that stands in a collated batch's place where the
+# reader skipped the batch unread (``parallel.ShardedBatchSkipper`` on one
+# process): its value is the batch's recorded event count.  The training
+# loop refuses such a record as an oversized batch.
+SKIPPED_EVENTS = 'skipped_events'
+
+
 def round_up_to_bucket(n: int, buckets) -> int:
     """Smallest bucket >= n; buckets is a sorted iterable of capacities."""
     for b in buckets:

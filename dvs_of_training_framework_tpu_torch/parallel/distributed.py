@@ -22,13 +22,14 @@ also decide how a device-queue window runs (``window_rule``), which rank 0
 prints beside the backend.
 """
 import datetime
-import math
 import os
 import socket
 
-import numpy as np
 import torch
 import torch.distributed as dist
+
+from ..data.preprocessed import batch_events
+from ..data.schema import SKIPPED_EVENTS
 
 # a dead rank leaves the others waiting inside a collective: the store
 # rendezvous and every gloo collective give up after this long
@@ -203,13 +204,25 @@ class ShardedBatchSkipper:
     pure metadata property (data/preprocessed.py
     ``per_sample_event_counts``): every process evaluates the SAME rule —
     "does any of the ``n_shards`` per-device slices of global batch g
-    exceed ``capacity_per_shard``?" — from the same counts array, with
-    zero communication.  Skipped global batches are strided past without
-    reading (``skip_batch``), and the rule is a deterministic function of
-    the stream position, so checkpoint resume replays identical
-    decisions.  Unlike the JAX package's, it raises when it has skipped
-    every batch position the stream has (a global batch over
-    ``capacity_per_shard`` everywhere would otherwise skip forever).
+    exceed ``capacity_per_shard``?" — from the same counts array
+    (``batch_events``), with zero communication.  Skipped global batches
+    are strided past without reading (``skip_batch``), and the rule is a
+    deterministic function of the stream position.  Unlike the JAX
+    package's, it raises when no batch position of the stream fits
+    ``capacity_per_shard`` (the JAX package's would skip forever).
+
+    One process (``n_shards=1``, ``report_skips=True``) takes the same
+    rule: with ``capacity_per_shard`` the loop's capacity, "the batch's
+    recorded events exceed it" is the loop's own overflow test on the
+    decoded batch, so the same batches are trained in the same order,
+    but a skipped batch is never read or decoded.  There the copy differs
+    from the JAX package's, which never reports a skip to the loop: it
+    yields a record ``{SKIPPED_EVENTS: n, 'sample': position}`` in the
+    batch's place, which the loop refuses as it refuses an oversized
+    batch, so the loop still logs the skip line, the processing rate and
+    ``General/skipped batches`` as a run that decodes and drops it does.
+    On a mesh nothing is reported: every rank skips the same global
+    batches silently, as in the JAX package.
 
     Args:
         loader: this process's PreprocessedDataloader (already sharded).
@@ -221,68 +234,49 @@ class ShardedBatchSkipper:
         global_batch: samples per GLOBAL batch (local batch x P).
         n_shards: devices on the mesh data axis (global).
         capacity_per_shard: per-device capacity in the same unit.
-        start_sample: global samples already consumed (resume position).
+        start_sample: the stream position the loader stands at (a
+            resume's; ``data.preprocessed.stream_position`` on one
+            process).
         unit: display name of the cost unit for the skip log line.
+        report_skips: yield a skip record in each skipped batch's place
+            (one process) in place of printing the skipper's own line.
     """
 
     def __init__(self, loader, per_sample_events, global_batch: int,
                  n_shards: int, capacity_per_shard: int,
-                 start_sample: int = 0, unit: str = 'events'):
+                 start_sample: int = 0, unit: str = 'events',
+                 report_skips: bool = False):
         self.unit = unit
+        self.report_skips = report_skips
         assert global_batch % n_shards == 0, (global_batch, n_shards)
         self.loader = loader
         self.global_batch = global_batch
-        self.spd = global_batch // n_shards
-        self.n_shards = n_shards
         self.capacity_per_shard = capacity_per_shard
-        counts = np.asarray(per_sample_events, np.int64)
-        self.length = counts.size
-        assert global_batch <= self.length, \
-            f'global batch {global_batch} exceeds dataset ({self.length})'
-        self._csum = np.concatenate([[0], np.cumsum(counts)])
+        self.length = len(per_sample_events)
+        self.worst = batch_events(per_sample_events, global_batch, n_shards)
         self.cursor = (start_sample // global_batch) * global_batch
-        # the distinct start positions of a global batch in the stream
-        self.positions = self.length // math.gcd(self.length, global_batch)
-
-    def _range_events(self, lo: int, hi: int) -> int:
-        """Events in stream samples ``[lo, hi)`` (wrapping modulo length)."""
-        total = int(self._csum[-1])
-        full, lo = divmod(lo, self.length)
-        hi -= full * self.length
-        if hi <= self.length:
-            return int(self._csum[hi] - self._csum[lo])
-        return int(total - self._csum[lo]
-                   + self._csum[hi - self.length])
-
-    def _overflows(self, start: int) -> bool:
-        return any(self._range_events(start + k * self.spd,
-                                      start + (k + 1) * self.spd)
-                   > self.capacity_per_shard
-                   for k in range(self.n_shards))
 
     def __iter__(self):
-        skipped = 0
+        if (self.worst > self.capacity_per_shard).all():
+            raise RuntimeError(
+                f'every global batch of the stream has a shard over '
+                f'{self.capacity_per_shard} {self.unit}: raise '
+                '--event-capacity')
         while True:
             start = self.cursor % self.length
-            if skipped == self.positions:
-                raise RuntimeError(
-                    f'every global batch of the stream has a shard over '
-                    f'{self.capacity_per_shard} {self.unit}: raise '
-                    '--event-capacity')
-            if self._overflows(start):
-                worst = max(self._range_events(start + k * self.spd,
-                                               start + (k + 1) * self.spd)
-                            for k in range(self.n_shards))
+            worst = int(self.worst[self.cursor // self.global_batch
+                                   % self.worst.size])
+            self.cursor += self.global_batch
+            if worst <= self.capacity_per_shard:
+                yield next(self.loader)
+                continue
+            self.loader.skip_batch()
+            if self.report_skips:
+                yield {SKIPPED_EVENTS: worst, 'sample': start}
+            else:
                 print(f'Skipping batch at sample {start} '
                       f'(per-shard {self.unit} {worst} > capacity '
                       f'{self.capacity_per_shard})')
-                self.loader.skip_batch()
-                self.cursor += self.global_batch
-                skipped += 1
-                continue
-            skipped = 0
-            self.cursor += self.global_batch
-            yield next(self.loader)
 
     def close(self):
         close = getattr(self.loader, 'close', None)

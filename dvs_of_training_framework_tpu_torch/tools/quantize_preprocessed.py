@@ -30,18 +30,16 @@ Usage:
         --precision bfloat16 -sp <run>/step_10000.ckpt
 """
 import dataclasses
-import math
 import sys
 import time
 from argparse import ArgumentParser
 
-import numpy as np
 import torch
 
 from ..data import codec
 from ..data.dataloader import (choose_data_path, get_dataloader,
                                get_trainset_params)
-from ..data.preprocessed import per_sample_event_counts
+from ..data.preprocessed import per_sample_event_counts, stream_position
 from ..data.schema import pad_batch
 from ..data.sharding import ShardWriter
 from ..models import init_model
@@ -95,30 +93,6 @@ def parse_args(args, is_write=True):
     if is_write:
         write_execution_info(args.output, execution_info)
     return args
-
-
-def stream_position(per_sample, batch_size, capacity, samples_written):
-    """The stream's sample index after the batches that wrote
-    ``samples_written`` samples, the skipped ones among them: batches of
-    ``batch_size`` consecutive samples from index 0, wrapping at the end
-    of ``per_sample`` (each sample's event count), each skipped when it
-    holds more than ``capacity`` events."""
-    n = per_sample.size
-    period = n // math.gcd(n, batch_size)     # batches before positions recur
-    position = written = skips = 0
-    while written < samples_written:
-        events = per_sample.take(np.arange(position, position + batch_size),
-                                 mode='wrap').sum()
-        if events > capacity:
-            skips += 1
-            if skips >= period:
-                raise ValueError(f'no batch of {batch_size} samples fits '
-                                 f'{capacity} events')
-        else:
-            written += batch_size
-            skips = 0
-        position += batch_size
-    return position
 
 
 def quantize_batch(model, batch, device):

@@ -32,8 +32,18 @@ one call, a replay of one CUDA graph on a card.  Validation stages
 ``--validation-window`` batches a call (8 by default, 0 for one at a
 time).  A resumed run starts a new window at its checkpoint, so a window
 that divides the checkpoint and validation cadence keeps every window
-whole.  On a mesh every rank stages windows of its own pieces, and a
-window runs by the backend's rule, which rank 0 prints beside the
+whole.  Over raw preprocessed shards a batch whose recorded event count
+exceeds the capacity is skipped without being read
+(``parallel.ShardedBatchSkipper``, from the shards' metadata): on one
+device with the loop's own rule and its skip line, processing rate and
+``General/skipped batches`` scalar, so the run is the one that decodes
+and drops such batches; a resume reads on from the batch after the last
+one trained (``data.preprocessed.stream_position``), so it repeats
+the uninterrupted run.  A stream served out of order (a non-blocking
+``--cache-dir``) is decoded, then skipped.  There and on a mesh a resume
+reads on from ``samples_passed``, as in the JAX package, which counts no
+skipped batch.  On a mesh every rank stages windows of its own pieces,
+and a window runs by the backend's rule, which rank 0 prints beside the
 backend: one CUDA graph replay with its NCCL all-reduces inside under
 NCCL, its steps eagerly in one call under gloo and on the CPU
 (``parallel.window_rule``); the ranks check that they staged the same
@@ -442,19 +452,36 @@ def run_rank(args, groups):
         loader = get_dataloader(trainset, sample_idx=samples_passed,
                                 process_only_once=args.process_only_once,
                                 event_image_fn=event_image_fn)
-        if (groups is not None and args.is_raw
-                and args.preprocessed_dataset_path is not None):
-            # the same oversized-batch decisions on every data rank, from
-            # the shards' event counts; a dense batch is never skipped
-            from .data.preprocessed import per_sample_event_counts
-            capacity = min(args.event_capacity, args.max_events_per_batch)
-            loader = ShardedBatchSkipper(
-                loader, per_sample_event_counts(
-                    args.preprocessed_dataset_path),
-                global_batch=args.mbs, n_shards=groups.mesh.data,
+        if not args.is_raw or args.preprocessed_dataset_path is None:
+            return loader       # a dense batch is never skipped
+        # oversized batches are skipped unread, from the shards' event
+        # counts
+        from .data.preprocessed import (per_sample_event_counts,
+                                        stream_position)
+        counts = per_sample_event_counts(args.preprocessed_dataset_path)
+        capacity = min(args.event_capacity, args.max_events_per_batch)
+        if groups is not None:
+            # the same decisions on every data rank
+            return ShardedBatchSkipper(
+                loader, counts, global_batch=args.mbs,
+                n_shards=groups.mesh.data,
                 capacity_per_shard=shard_capacity(capacity, groups),
                 start_sample=samples_passed)
-        return loader
+        if not loader.in_order:
+            # the recorded counts would not describe the batch served:
+            # decode, then skip
+            return loader
+        # one rank: the loop's own decisions (its capacity, no 4096
+        # floor), each skip reported to the loop; a resume reads on from
+        # the batch after the last one trained
+        position = stream_position(counts, args.mbs, capacity,
+                                   samples_passed)
+        if position != samples_passed:
+            loader.set_index(position)
+        return ShardedBatchSkipper(
+            loader, counts, global_batch=args.mbs, n_shards=1,
+            capacity_per_shard=capacity, start_sample=position,
+            report_skips=True)
 
     def train_loader_factory(samples_passed):
         if groups is None or groups.mesh.event == 1:

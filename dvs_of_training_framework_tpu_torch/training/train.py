@@ -10,6 +10,9 @@ validation pass logs the mean loss terms.  The TensorBoard tags and
 values are the JAX loop's.  A rank of a multi-process run hands both a
 ``prepare_batch`` that cuts its piece out of each host batch
 (``parallel/mesh.py``), and counts samples globally (``samples_scale``).
+A batch that the reader skipped unread arrives as a record of its
+recorded event count (``data.schema.SKIPPED_EVENTS``) and is reported as
+a decoded oversized batch is.
 
 The step is host-bound, so the loop never waits on the card for a
 metric: losses stay on the device and are fetched with one stacked
@@ -32,7 +35,7 @@ import itertools
 import torch
 
 from ..data.prefetch import prefetch_to_device
-from ..data.schema import pad_batch
+from ..data.schema import SKIPPED_EVENTS, pad_batch
 from ..utils.timer import (FakeTimer, SynchronizedWallClockTimer,
                            ThroughputTimer)
 from .state import step_values
@@ -60,6 +63,8 @@ def add_loss(loss_sum, loss_values):
 def batch_num_events(batch, is_raw=True):
     if not is_raw:
         return 0
+    if SKIPPED_EVENTS in batch:     # skipped unread: its recorded count
+        return int(batch[SKIPPED_EVENTS])
     return int(batch['events']['x'].size)
 
 
@@ -236,7 +241,10 @@ def train(train_step,
         num_events = batch_num_events(host_batch, is_raw)
         num_processed = global_step - init_batch
         print(f'Skipping batch with {num_events} events')
-        if num_events > capacity:
+        if SKIPPED_EVENTS in host_batch:
+            print(f'(at sample {host_batch["sample"]}, skipped by its '
+                  'recorded event count, unread)')
+        elif num_events > capacity:
             print('Augmentation parameters '
                   f'{host_batch.get("augmentation_params")}')
         rate = num_processed / max(num_processed + num_skipped, 1)
