@@ -150,16 +150,16 @@ Phases:
     bf16-vs-fp32 gap); the two ranks' parameters equal bit for bit;
     each rank's ms a step, the all-reduce's host time and the bytes
     reduced a step on each axis;
-24. ``train.main(['--mesh', 'data:2', ...])`` over phase 14's shards: 12
+24. ``train.main(['--mesh', 'data:2', ...])`` over phase 14's shards: 8
     production-recipe steps on two spawned ranks sharing the card,
     checkpoints and sharded validation every 4, one step at a time
     (``--device-queue-window 0``: phase 30 runs it in windows); rank 0
     alone writes,
     ``samples_passed`` counts global samples, two copies cut back to
-    checkpoint 8 resume through ``main()`` held to phase 12's rule; then
-    ``--mesh data:1,event:2`` 4 steps over the raw split in one window
-    (event rank 0 reads and sends each batch, each rank voxelizes half
-    its events);
+    checkpoint 4 resume through ``main()`` held to phase 12's rule, and
+    beside them (every rank a process of its own) ``--mesh
+    data:1,event:2`` 4 steps over the raw split in one window (event rank
+    0 reads and sends each batch, each rank voxelizes half its events);
 25. two processes started with the multi-host flags (``--coordinator-
     address``, ``--num-processes 2``, ``--process-id``) over phase 14's
     shards (strided reads, the sharded skip rule), 8 recipe steps with
@@ -196,11 +196,11 @@ Phases:
     over phase 14's layout (its existence checks skip the simulator and
     the slicing; ``prepare_batches`` writes 96 samples), then
     ``run_accuracy_varied.sh`` with the production recipe at full width
-    in windows of 4 for 8 steps, and again on the same directory to 12
+    in windows of 4 for 4 steps, and again on the same directory to 8
     with validation every 4 steps: each training child launches K1 and K2
     backward once a step and the fused warp's backward 4 times, and a
     step's worth before its graph's capture (the second run 4 steps: it
-    resumed at step 8), and the checkpoints kept are steps 0, 8 and 12;
+    resumed at step 4), and the checkpoints kept are steps 0, 4 and 8;
     then ``eval_accuracy_varied.sh``: one pickle a kept checkpoint for
     each matrix, finite, a row of ``aee_table`` for each, and K1 and K2
     forward alone in the evaluation children;
@@ -212,16 +212,17 @@ Phases:
     window: losses, parameters and the optimizer state equal bit for
     bit; the launches of each way (a replay counts what its capture
     recorded, and the profiler's kernels inside one replay must agree);
-    then each way's ms a step (in turns), device busy and ops, idle share,
-    host launches a step, peak memory, the capture's time;
+    then each way's ms a step (in turns: eager one window, graph two,
+    twice each), device busy and ops, idle share, host launches a step,
+    peak memory, the capture's time;
     ``validate_windowed`` against ``validate`` bit for bit and timed; a
     ``run()`` of 32 steps in windows of 16 resumed from checkpoint 16
     equals the uninterrupted run bit for bit; then ``train.main()`` with
-    the default windows (16 and 8) over phase 14's shards, 80 steps with
+    the default windows (16 and 8) over phase 14's shards, 64 steps with
     checkpoints and validation every 16: every window one replay, ms a
     loop step against phase 14's one batch at a time;
 30. the device-queue window on a mesh: (a) a one-rank NCCL group
-    (``data:1``) in this process, two windows of 16 bench batches as 32
+    (``data:1``) in this process, two windows of 8 bench batches as 16
     eager sharded steps and as 2 replays of one graph whose capture
     holds the data group's all-reduce, golden and recipe (phase 29's
     optimizer), then the recipe on ``data:1,event:1`` (the grid sum and
@@ -233,9 +234,9 @@ Phases:
     ``data:1,event:2``, the recipe over 8 bench batches as windows of 4
     (eager in one call each, gloo's rule) and as per-step sharded steps,
     bit for bit, both ranks, timed in turns; (c) ``train.main()`` with
-    ``--mesh data:2 --device-queue-window 4`` as phase 24, 12 steps
+    ``--mesh data:2 --device-queue-window 4`` as phase 24, 8 steps
     over phase 14's shards, against phase 24's seconds, and two copies cut
-    back to checkpoint 8 resumed and held to phase 12's rule;
+    back to checkpoint 4 resumed at once and held to phase 12's rule;
 31. oversized batches skipped unread on one rank: RecurrentFlowNet's
     recipe through ``train.main()`` over phase 18's 2-element shards (96
     samples, 12 batch positions of 8) at the median of the positions'
@@ -246,7 +247,18 @@ Phases:
     drops those over the capacity; the losses, the ``General/skipped
     batches`` scalars, the parameters and the optimizer state equal bit
     for bit, the launches equal; each way's ms a skipped batch, ms
-    reading a trained batch, ms a trained step and seconds.
+    reading a trained batch, ms a trained step and seconds;
+32. the evaluation CLI's ``DevicePool`` over phase 14's checkpoints
+    (steps 0, 6 and 12) on ``cuda:0``: in turn (``-s``, one checkpoint a
+    call), then through the pool at ``--tests_per_device`` 1 and 2, twice
+    each in turns, then once each under the profiler: every pickle of
+    every run equal bit for bit to the in-turn run's, and step 12's to
+    phase 15's; K1 and K2 forward once a block of windows and nothing
+    else in each run; each run's seconds, and the card's busy share
+    (the union of its device ops' intervals over the run's wall time)
+    of the traced ones; where the machine has two cards or more, ``-d
+    cuda`` spreads the checkpoints over every card and its pickles equal
+    one card's.
 
 Every phase from 17 on prints its own seconds.  A window (phases 11, 18,
 21, 28, 29, 30) runs as one CUDA graph replay where it covers whole
@@ -264,6 +276,7 @@ that line is not printed.
 
 Usage (from the root of a checkout):  python3 chip_smoke.py
 """
+import contextlib
 import filecmp
 import json
 import math
@@ -326,10 +339,10 @@ BARE_ARGS = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
 # phases 23-25: the meshes of two ranks sharing the card, and the steps
 # of the spawned mesh's main() and of the multi-host flags' main()
 MESHES = ('data:2', 'data:1,event:2')
-MESH_STEPS, HOSTS_STEPS = 12, 8
+MESH_STEPS, HOSTS_STEPS = 8, 8
 # phase 28: the accuracy scripts' first run and its resume, in steps,
 # and the resumed run's validation period
-ACCURACY_STEPS, ACCURACY_EVERY = (8, 12), 4
+ACCURACY_STEPS, ACCURACY_EVERY = (4, 8), 4
 ACCURACY_LIMIT = 240           # seconds a script may take
 # the kernels that phase 25's trace of a training step must name
 TRACE_KERNELS = ('voxelize_tile_kernel', 'voxelize_bwd_kernel',
@@ -347,10 +360,11 @@ WINDOW_ARGS = SimpleNamespace(optimizer='RANGER', lr=1e-3, wdw=1e-4,
                               half_life=100000, num_warmup_steps=0,
                               training_steps=40, rs=0.5, grad_clip_norm=1.0,
                               ema_decay=0.999)
-WINDOW_MAIN_STEPS = 5 * WINDOW
-# phase 30: the windows of two ranks sharing the card, and of the spawned
-# mesh's main() (phase 24's checkpoint cadence)
-MESH_WINDOW = 4
+WINDOW_MAIN_STEPS = 4 * WINDOW
+# phase 30: the one-rank NCCL group's windows, and the windows of two
+# ranks sharing the card and of the spawned mesh's main() (phase 24's
+# checkpoint cadence)
+MESH_GRAPH_WINDOW, MESH_WINDOW = 8, 4
 
 
 MLP_GRADS = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
@@ -1470,21 +1484,41 @@ def fitting_capacity(collated, floor=2 ** 18):
     return max(floor, -(-most // 1024) * 1024)
 
 
-def resume_against(label, out, run, argv, steps, every):
+def together(*fns):
+    """Call ``fns`` at once, each on a thread of its own, and return their
+    results in order; the first error is raised once all have ended.  For
+    ``train.main()`` calls that spawn ranks of their own: each rank is a
+    process, so nothing of one run touches another's."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result() for f in futures]
+
+
+def resume_against(label, out, run, argv, steps, every, alongside=None):
     """Phase 12's rule for ``train.main()``: two copies of ``run`` cut back
     to checkpoint ``steps - every`` resume to ``steps``; each parameter of
     the first must lie within twice the two copies' largest difference of
-    the uninterrupted run's, and equal it bit for bit where they agree."""
+    the uninterrupted run's, and equal it bit for bit where they agree.
+    With ``alongside`` (a mesh's runs, whose ranks are processes of their
+    own) the two resumes and ``alongside()`` run at once, and its result
+    is returned."""
     from dvs_of_training_framework_tpu_torch import train as cli
     from dvs_of_training_framework_tpu_torch.training.serializer import \
         Serializer
-    copies = []
-    for i in range(2):
+
+    def resume(i):
         copy = out / f'{run.name}_resume{i}'
         shutil.copytree(run, copy)
         (copy / f'step_{steps}.ckpt').unlink()
         cli.main(['-m', str(copy)] + argv + ['--allow-arguments-change'])
-        copies.append(Serializer(copy).read_state_dict(steps)['model'])
+        return Serializer(copy).read_state_dict(steps)['model']
+
+    if alongside is None:
+        copies, extra = [resume(0), resume(1)], None
+    else:
+        *copies, extra = together(lambda: resume(0), lambda: resume(1),
+                                  alongside)
     whole = Serializer(run).read_state_dict(steps)['model']
     diffs = {name: (max_abs(copies[0][name], want),
                     max_abs(copies[0][name], copies[1][name]))
@@ -1501,6 +1535,7 @@ def resume_against(label, out, run, argv, steps, every):
           f'abs diff {max(d for d, _ in diffs.values()):.3e} ('
           f'{sum(d == 0 for d, _ in diffs.values())}/{len(diffs)} parameters '
           f'equal bit for bit); the two resumes: {spread:.3e}; bound 2x')
+    return extra
 
 
 def card_vs_cpu(label, eval_cli, argv, plugin_cls, n=2):
@@ -2539,30 +2574,35 @@ def mesh_phases(out, collated, capacity, device, card):
           f'rank 0 alone wrote; card: {card}')
     print(f'  launches: {launches["mesh_main"]}')
     numbers['mesh_main_s'] = main_s
-    resume_against('[24]', out, run, argv, MESH_STEPS, every)
 
     # the event axis over the raw split: event rank 0 reads, both cut; one
-    # window of `every` steps, eager in one call under gloo
-    run = out / 'run_mesh_event'
-    argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
-            '-ne', str(every), '--checkpointing_interval', str(every),
-            '--permanent_interval', str(every), '-vp', str(every),
-            '--event-capacity', str(2 ** 18), '--mesh', 'data:1,event:2',
-            '--device-queue-window', str(every)] + RECIPE_FLAGS
-    t0 = time.perf_counter()
-    ranks = cli.main(argv)
-    main_s = time.perf_counter() - t0
-    check_run_dir('[24] event axis', run, ranks, every, 8)
+    # window of `every` steps, eager in one call under gloo; run beside
+    # the two resumes (every rank a process of its own)
+    event_run = out / 'run_mesh_event'
+    event_argv = ['-m', str(event_run), '-d', device.type, '-bs', '8',
+                  '-mbs', '8', '-ne', str(every), '--checkpointing_interval',
+                  str(every), '--permanent_interval', str(every), '-vp',
+                  str(every), '--event-capacity', str(2 ** 18), '--mesh',
+                  'data:1,event:2', '--device-queue-window',
+                  str(every)] + RECIPE_FLAGS
+
+    def event_main():
+        t0 = time.perf_counter()
+        return cli.main(event_argv), time.perf_counter() - t0
+
+    ranks, main_s = resume_against('[24]', out, run, argv, MESH_STEPS,
+                                   every, alongside=event_main)
+    check_run_dir('[24] event axis', event_run, ranks, every, 8)
     launches['mesh_event_main'] = check_rank_launches('[24] event axis',
                                                       ranks, every)
-    losses = read_scalars(run / 'log').get('General/Train loss', [])
+    losses = read_scalars(event_run / 'log').get('General/Train loss', [])
     if len(losses) != every or not np.isfinite(losses).all():
         raise AssertionError(f'[24] event axis: losses {losses}')
     print(f'[24] train.main() --mesh data:1,event:2 over the raw split, '
           f'{every} steps in one window, each rank voxelizing half of '
           'each batch\'s '
           'events: losses ' + ' '.join(f'{v:.5f}' for v in losses)
-          + f'; {main_s:.2f} s in all; launches '
+          + f'; {main_s:.2f} s in all, beside the two resumes; launches '
           f'{launches["mesh_event_main"]}')
     print(f'[24] {time.perf_counter() - t_phase:.2f} s')
 
@@ -3255,7 +3295,7 @@ def window_ways(tag, config, evaluator, build, windows, counters, card):
     seconds = {'eager': [], 'graph': []}
     for mode in ('eager', 'graph', 'eager', 'graph'):
         r = runs[mode]
-        rounds = 2 if mode == 'eager' else 4
+        rounds = 1 if mode == 'eager' else 2
         seconds[mode].append(window_runs(r.step, r.state, windows,
                                          rounds) / (rounds * K))
     ms = {m: 1e3 * statistics.mean(v) for m, v in seconds.items()}
@@ -3285,8 +3325,8 @@ def window_ways(tag, config, evaluator, build, windows, counters, card):
             nccl_ms=sum(e.device_time_total for e in nccl) / 1e3 / K,
             nccl_ops=sum(e.count for e in nccl) / K)
     print(f'{tag} {config} step, eager against one graph replay a window '
-          f'of {K} (staged windows, timed in turns, eager 2 + 2 windows, '
-          f'graph 4 + 4):')
+          f'of {K} (staged windows, timed in turns, eager 1 + 1 windows, '
+          f'graph 2 + 2):')
     for mode in ('eager', 'graph'):
         t = traced[mode]
         idle = 100 * (1 - t.busy / ms[mode]) if t.busy else float('nan')
@@ -3556,15 +3596,16 @@ def mesh_window_worker(rank, out, port):
 def mesh_window_phase(out, collated, capacity, device, card, counters,
                       shapes, per_step_main_s):
     """Phase 30: the device-queue window on a mesh.  (a) A one-rank NCCL
-    group at the bench shape: 2 windows of WINDOW as sharded eager steps
-    and as replays of one graph whose capture holds the all-reduces,
-    golden and recipe, then the recipe on the event axis (the grid sum and
-    the quantization gradients' sum captured too); (b) two ranks sharing
-    the card (gloo), ``data:2`` and ``data:1,event:2``: windows of
-    MESH_WINDOW, eager in one call each, against per-step sharded steps,
-    and the replicas; (c) ``train.main()`` with ``--mesh data:2
-    --device-queue-window MESH_WINDOW`` over phase 14's shards with a
-    resume from checkpoint 8 held to phase 12's rule.  Returns the launch
+    group at the bench shape: 2 windows of MESH_GRAPH_WINDOW as sharded
+    eager steps and as replays of one graph whose capture holds the
+    all-reduces, golden and recipe, then the recipe on the event axis
+    (the grid sum and the quantization gradients' sum captured too); (b)
+    two ranks sharing the card (gloo), ``data:2`` and ``data:1,event:2``:
+    windows of MESH_WINDOW, eager in one call each, against per-step
+    sharded steps, and the replicas; (c) ``train.main()`` with ``--mesh
+    data:2 --device-queue-window MESH_WINDOW`` over phase 14's shards
+    with a resume from the checkpoint before the last held to phase 12's
+    rule.  Returns the launch
     counts of (a)'s recipe graph run and of (c)'s ranks, and the
     phase's numbers."""
     import torch.distributed as dist
@@ -3583,7 +3624,7 @@ def mesh_window_phase(out, collated, capacity, device, card, counters,
 
     t_phase = time.perf_counter()
     torch.backends.cudnn.deterministic = True
-    K = WINDOW
+    K = MESH_GRAPH_WINDOW
     host = [pad_batch(c, capacity) for c in collated]
     windows = [stack_batches([host[(w * K + i) % len(host)]
                               for i in range(K)], pin=True).to(device)
@@ -3714,7 +3755,9 @@ def mesh_window_phase(out, collated, capacity, device, card, counters,
           f'{per_step_main_s:.2f} s one step at a time; launches '
           f'{launches["mesh_window_main"]}; card: {card}')
     numbers['main_s'] = {'windows': main_s, 'per_step': per_step_main_s}
-    resume_against('[30] (c)', out, run, argv, MESH_STEPS, every)
+    # the two resumes at once: each rank is a process of its own
+    resume_against('[30] (c)', out, run, argv, MESH_STEPS, every,
+                   alongside=lambda: None)
     print(f'[30] (c) {time.perf_counter() - t0:.2f} s')
     print(f'[30] {time.perf_counter() - t_phase:.2f} s')
     return launches, numbers
@@ -3929,6 +3972,134 @@ def skip_phase(out, device, card, counters):
            for key in ('skip_ms', 'read_ms', 'step_ms', 'seconds')},
         'skipped': len(meta.reader.skipped),
         'trained_batches': len(meta.reader.trained)}
+
+
+def busy_union_ms(events):
+    """Milliseconds in which the card ran at least one of the profiler's
+    device ops: the union of their intervals, so two streams' overlapping
+    kernels count once."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in device_ops(events))
+    busy, end = 0.0, float('-inf')
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy / 1e3
+
+
+def eval_pool_phase(out, device, card, counters):
+    """Phase 32: the evaluation CLI over every checkpoint of phase 14's
+    run, in turn (``-s`` a checkpoint a call) and through ``DevicePool``
+    at one and two jobs a card; every pickle bit for bit the in-turn
+    one's and phase 15's; seconds and the card's busy share of each run;
+    on a machine of two cards or more, the checkpoints spread over every
+    card.  Returns the launch counts of the pool at two jobs a card (the
+    CLI's default) and the phase's numbers."""
+    from dvs_of_training_framework_tpu_torch import test as eval_cli
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+    t_phase = time.perf_counter()
+    run = out / 'run'
+    steps = Serializer(run).list_known_steps()
+    config = REPO / 'dvs_of_training_framework_tpu_torch' / 'config' / \
+        'synth_testing.json'
+
+    def cli(name, card_flag, extra, profiled=False):
+        """The CLI's main() into ``out/<name>``: seconds, the card's busy
+        share under the profiler (or None), launches and the pickles."""
+        target = out / name
+        reset(counters)
+        torch.cuda.synchronize()
+        with (profile() if profiled else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            if extra[:1] == ['-s']:
+                for step in steps:
+                    eval_cli.main(['-m', str(run), '-o', str(target), '-d',
+                                   card_flag, '--test-config', str(config),
+                                   '-s', str(step)])
+            else:
+                eval_cli.main(['-m', str(run), '-o', str(target), '-d',
+                               card_flag, '--test-config', str(config)]
+                              + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        busy = busy_union_ms(prof.events()) / 1e3 / seconds if profiled \
+            else None
+        pickles = {p.name: p.read_bytes()
+                   for p in sorted(target.glob('step_*.pkl'))}
+        if sorted(pickles) != sorted(f'step_{s}.pkl' for s in steps):
+            raise AssertionError(f'[32] {name}: pickles {sorted(pickles)}')
+        return SimpleNamespace(seconds=seconds, busy=busy, pickles=pickles,
+                               counts=read_counts(counters))
+
+    runs = {'in turn': cli('pool_in_turn', 'cuda:0', ['-s'])}
+    for per_card in (1, 2, 1, 2):
+        runs.setdefault(f'pool {per_card}', []).append(cli(
+            f'pool_{per_card}_{len(runs.get(f"pool {per_card}", []))}',
+            'cuda:0', ['--tests_per_device', str(per_card)]))
+    for per_card in (1, 2):
+        runs[f'pool {per_card} traced'] = cli(
+            f'pool_{per_card}_traced', 'cuda:0',
+            ['--tests_per_device', str(per_card)], profiled=True)
+    want = runs['in turn']
+    records = [pickle.loads(b) for b in want.pickles.values()]
+    blocks = sum(math.ceil(len(r.windows) / EVAL_BLOCK)
+                 for rs in records for r in rs)
+    numbers = [v for rs in records for r in rs
+               for v in (r.mAEE, r.mpAEE, r.mMedEE)]
+    if not np.isfinite(numbers).all():
+        raise AssertionError(f'[32] scores {numbers}')
+    expected = {k: blocks if k in ('voxelize_fwd', 'kernel_mlp_fwd') else 0
+                for k in counters}
+    flat = [('in turn', want)] + [
+        (name, r) for name, rs in runs.items() if name != 'in turn'
+        for r in (rs if isinstance(rs, list) else [rs])]
+    for name, r in flat:
+        if r.pickles != want.pickles:
+            raise AssertionError(f'[32] {name}: a pickle differs from the '
+                                 'in-turn evaluation\'s')
+        if r.counts != expected:
+            raise AssertionError(f'[32] {name}: launches {r.counts}, '
+                                 f'expected {expected}')
+    phase15 = (out / 'eval' / f'step_{MAIN_STEPS}.pkl').read_bytes()
+    if want.pickles[f'step_{MAIN_STEPS}.pkl'] != phase15:
+        raise AssertionError('[32] the in-turn pickle of step '
+                             f'{MAIN_STEPS} differs from phase 15\'s')
+    seconds = {name: ([r.seconds for r in rs] if isinstance(rs, list)
+                      else rs.seconds) for name, rs in runs.items()}
+    busy = {name: runs[f'{name} traced'].busy for name in ('pool 1',
+                                                           'pool 2')}
+    print(f'[32] the evaluation CLI over the {len(steps)} checkpoints '
+          f'{steps} of phase 14\'s run, {blocks} blocks of up to '
+          f'{EVAL_BLOCK} windows in all: in turn (-s a checkpoint a call) '
+          f'{seconds["in turn"]:.2f} s; through DevicePool on cuda:0 with '
+          '--tests_per_device 1: ' + ' '.join(
+              f'{v:.2f}' for v in seconds['pool 1'])
+          + ' s, with 2: ' + ' '.join(f'{v:.2f}' for v in seconds['pool 2'])
+          + f' s (in turns); under the profiler {seconds["pool 1 traced"]:.2f}'
+          f' and {seconds["pool 2 traced"]:.2f} s, the card busy '
+          f'{100 * busy["pool 1"]:.1f}% and {100 * busy["pool 2"]:.1f}% of '
+          f'them; every pickle of the {len(flat)} runs equals the in-turn '
+          f'run\'s bit for bit, and step {MAIN_STEPS}\'s phase 15\'s; '
+          f'launches {runs["pool 2"][0].counts} a run; card: {card}')
+    multi = None
+    if torch.cuda.device_count() >= 2:
+        cards = cli('pool_cards', 'cuda', ['--tests_per_device', '2'])
+        if cards.pickles != want.pickles:
+            raise AssertionError('[32] the checkpoints spread over '
+                                 f'{torch.cuda.device_count()} cards differ '
+                                 'from one card\'s')
+        multi = {'cards': torch.cuda.device_count(),
+                 'seconds': cards.seconds}
+        print(f'[32] over {torch.cuda.device_count()} cards (-d cuda, 2 a '
+              f'card): {cards.seconds:.2f} s, every pickle one card\'s')
+    else:
+        print('[32] one card: the spread over several cards is not run')
+    print(f'[32] {time.perf_counter() - t_phase:.2f} s')
+    return runs['pool 2'][0].counts, {
+        'checkpoints': steps, 'blocks': blocks, 'seconds': seconds,
+        'busy_share': busy, 'cards': multi}
 
 
 def main():
@@ -4411,6 +4582,10 @@ def main():
         launches['skip_main'], skip = skip_phase(Path(out), device, card,
                                                  counters)
 
+        # --- 32. the evaluation CLI's DevicePool over phase 14's run ------
+        launches['eval_pool'], eval_pool = eval_pool_phase(
+            Path(out), device, card, counters)
+
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
@@ -4420,15 +4595,16 @@ def main():
     # accuracy scripts' training and evaluation children, the recipe's
     # window steps as graph replays and main() with the default windows,
     # the recipe's sharded windows as a one-rank NCCL group's graph
-    # replays and the spawned mesh's main() with windows, and
-    # RecurrentFlowNet's main() skipping oversized batches unread
+    # replays and the spawned mesh's main() with windows,
+    # RecurrentFlowNet's main() skipping oversized batches unread, and the
+    # evaluation CLI's DevicePool
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
              'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
              'hosts_main', 'visualize', 'recurrent_visualize', 'accuracy',
              'window', 'window_main', 'mesh_window', 'mesh_window_main',
-             'skip_main')
+             'skip_main', 'eval_pool')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -4448,6 +4624,7 @@ def main():
     print(json.dumps({'window': window}))
     print(json.dumps({'mesh_window': mesh_window}))
     print(json.dumps({'skip': skip}))
+    print(json.dumps({'eval_pool': eval_pool}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {

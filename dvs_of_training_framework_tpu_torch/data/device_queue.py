@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .prefetch import alone, prepare_agreed
 from .schema import Batch, EventBuffer
 
 _ALIGN = 256     # bytes: every array of a window starts at a multiple
@@ -125,7 +126,7 @@ def stack_batches(batches, pin: bool = False) -> Window:
 
 
 def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
-                     device=None):
+                     device=None, agree=None):
     """Yield ``(host_batches, device_window, n_valid, skipped)`` tuples.
 
     Args:
@@ -137,6 +138,12 @@ def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
         depth: staged windows held when one is handed out (at least 1).
         device: where the windows go (the CPU by default); a card's are
             stacked in pinned memory and copied without blocking.
+        agree: on a mesh, ``data.prefetch.prepare_agreed``'s ``agree``:
+            the batches of a window are read and prepared, then each
+            slot's overflow is combined over the ranks in one all-reduce
+            before the window is staged, and a batch that overflowed on
+            any rank is dropped on every rank (a further round, as
+            small, refills the dropped slots).
 
     Each yielded tuple:
         host_batches: the K (or fewer, for the final window) collated
@@ -153,6 +160,7 @@ def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
     """
     device = torch.device('cpu' if device is None else device)
     pin = device.type == 'cuda'
+    batch_iter = iter(batch_iter)
 
     def staged():
         pending, skipped = [], []
@@ -168,12 +176,17 @@ def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
             skipped.clear()
             return item
 
-        for host_batch in batch_iter:
-            try:
-                pending.append((host_batch, prepare_fn(host_batch)))
-            except OverflowError:
-                skipped.append(host_batch)
-                continue
+        ended = False
+        while not ended:
+            # the window's free slots, read and prepared, then agreed
+            items, ended = prepare_agreed(batch_iter, prepare_fn,
+                                          window - len(pending),
+                                          agree or alone)
+            for host_batch, prepared in items:
+                if prepared is None:
+                    skipped.append(host_batch)
+                else:
+                    pending.append((host_batch, prepared))
             if len(pending) == window:
                 yield flush()
         if pending:

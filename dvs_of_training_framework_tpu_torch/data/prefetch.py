@@ -20,7 +20,48 @@ bare step with the same pinned upload (medians of 40 steps each).
 """
 
 
-def prefetch_to_device(batch_iter, prepare_fn, device):
+_END = object()
+
+
+def alone(drops, ended):
+    """``prepare_agreed``'s ``agree`` of a single process: its own marks."""
+    return drops, ended
+
+
+def prepare_agreed(batch_iter, prepare_fn, n, agree=alone):
+    """Read and prepare the next ``n`` host batches, then drop every one
+    that some rank could not prepare.
+
+    Args:
+        batch_iter: iterator of host-collated batch dicts.
+        prepare_fn: ``host_batch -> Batch``; an ``OverflowError`` marks
+            the batch's slot for dropping.
+        n: the slots of this round, the same on every rank.
+        agree: ``(drops, ended) -> (drops, ended)``, each rank's marks
+            and whether its stream ended, combined over the ranks
+            (``parallel.agree_on_drops``: one all-reduce).
+
+    Returns:
+        ``([(host_batch, prepared or None), ...], ended)``: a dropped
+        batch comes with None; after ``ended`` no rank reads on.
+    """
+    items, ended = [], False
+    for _ in range(n):
+        host_batch = next(batch_iter, _END)
+        if host_batch is _END:
+            ended = True
+            break
+        try:
+            items.append((host_batch, prepare_fn(host_batch)))
+        except OverflowError:
+            items.append((host_batch, None))
+    drops = [prepared is None for _, prepared in items]
+    drops, ended = agree(drops + [True] * (n - len(items)), ended)
+    return [(host_batch, None if drop else prepared)
+            for (host_batch, prepared), drop in zip(items, drops)], ended
+
+
+def prefetch_to_device(batch_iter, prepare_fn, device, agree=None):
     """Yield ``(host_batch, device_batch)`` for each host batch.
 
     Args:
@@ -29,16 +70,23 @@ def prefetch_to_device(batch_iter, prepare_fn, device):
             ``OverflowError`` yields ``(host_batch, None)`` so the caller
             can skip the batch.
         device: the torch device the batches go to.
+        agree: on a mesh, ``prepare_agreed``'s ``agree``: a batch is
+            then dropped on every rank when any rank's piece of it
+            overflowed, one all-reduce a batch.
 
     Abandoning the generator (break, exception, garbage collection)
     closes ``batch_iter``.
     """
     pin = device.type == 'cuda'
+    batch_iter = iter(batch_iter)
     try:
-        for host_batch in batch_iter:
-            try:
-                batch = prepare_fn(host_batch)
-            except OverflowError:
+        while True:
+            items, ended = prepare_agreed(batch_iter, prepare_fn, 1,
+                                          agree or alone)
+            if ended:
+                return
+            (host_batch, batch), = items
+            if batch is None:
                 yield host_batch, None
                 continue
             if pin:

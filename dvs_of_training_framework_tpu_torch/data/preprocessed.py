@@ -143,19 +143,22 @@ def batch_events(per_sample_events, global_batch: int,
     return (csum[lo + spd] - csum[lo]).max(axis=1)
 
 
-def stream_position(per_sample, batch_size, capacity, samples_kept):
+def stream_position(per_sample, batch_size, capacity, samples_kept,
+                    n_shards=1):
     """The stream's sample index after the batches that kept
     ``samples_kept`` samples, the skipped ones among them: batches of
     ``batch_size`` consecutive samples from index 0, wrapping at the end
-    of ``per_sample`` (each sample's event count), each skipped when it
-    holds more than ``capacity`` events.  A bake's resume and a training
-    run's: a checkpoint's ``samples_passed`` counts the trained batches
-    only, and reading on from it would read again the batches that the
-    run skipped (the JAX package's training and bake do)."""
+    of ``per_sample`` (each sample's event count), each skipped when the
+    fullest of its ``n_shards`` equal slices holds more than ``capacity``
+    events (a mesh's rule, ``batch_events``; one slice on one rank).  A
+    bake's resume and a training run's: a checkpoint's ``samples_passed``
+    counts the trained batches only, and reading on from it would read
+    again the batches that the run skipped (the JAX package's training
+    and bake do)."""
     kept = -(-samples_kept // batch_size)
     if kept == 0:
         return 0
-    events = batch_events(per_sample, batch_size)
+    events = batch_events(per_sample, batch_size, n_shards)
     fits = np.flatnonzero(events <= capacity)
     if fits.size == 0:
         raise ValueError(f'no batch of {batch_size} samples fits '
@@ -219,7 +222,7 @@ class PreprocessedDataloader:
             num_files_in_cache=cache_size)
         self._shard = 0        # index of the current shard in self.files
         self.sample_index = 0  # next sample within the current shard
-        self._meta_cache = {}  # shard index -> (spans, per-element sizes)
+        self._meta = None      # (served file, (spans, per-element sizes))
         self.current_file = self.iterator.next()
         if self.process_index:
             self._skip(self.process_index * self.batch_size)
@@ -281,19 +284,21 @@ class PreprocessedDataloader:
         self._skip(self.batch_size * self.process_count)
 
     def _shard_meta(self, shard):
-        """Per-shard size metadata, cached: re-reading the full
-        ``elements_per_sample``/``events_per_element`` arrays from HDF5
-        on every batch was a fixed ~ms-scale cost per __next__ (the
-        arrays are static; the cache is a few MB across all shards)."""
-        meta = self._meta_cache.get(self._shard)
-        if meta is None:
+        """The served file's size metadata, read once a visit:
+        re-reading the full ``elements_per_sample``/``events_per_element``
+        arrays on every batch was a fixed ~ms-scale cost per __next__.
+        Keyed by the file served, not by the stream's shard index: a
+        non-blocking cache serves files out of order, and the JAX
+        package's cache by shard index then reads one file's events with
+        another's sizes."""
+        name = self.current_file.name
+        if self._meta is None or self._meta[0] != name:
             spans = np.asarray(shard['elements_per_sample'])
             sizes = (np.asarray(shard['events']['events_per_element'])
                      if self.is_raw
                      else np.asarray(shard['channels_per_sample']))
-            meta = (spans, sizes)
-            self._meta_cache[self._shard] = meta
-        return meta
+            self._meta = (name, (spans, sizes))
+        return self._meta[1]
 
     def _read_slice(self, shard, begin, end):
         """Read encoded samples ``[begin, end)`` out of an open shard."""

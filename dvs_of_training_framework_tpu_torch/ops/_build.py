@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 PACKAGE = Path(__file__).resolve().parents[1]
@@ -96,9 +97,26 @@ def build() -> tuple:
     return lib, log + proc.stdout + proc.stderr
 
 
-@functools.cache
+# the first call builds and loads under it; the launch counters add under
+# it, since the evaluation CLI's DevicePool launches from several threads
+_LOCK = threading.Lock()
+
+
+def count(launches: dict, key: str) -> None:
+    """Add one launch to ``launches[key]``, atomically across threads."""
+    with _LOCK:
+        launches[key] += 1
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use; threads that ask
+    together wait for one build and one load."""
+    with _LOCK:
+        return _library()
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():

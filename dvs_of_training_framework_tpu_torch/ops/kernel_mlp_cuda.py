@@ -62,7 +62,7 @@ class _KernelMLP(torch.autograd.Function):
             b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
             delta.numel(), w2.shape[0], stream)
         _build.check(status, 'kernel_mlp_fwd')
-        launches['fwd'] += 1
+        _build.count(launches, 'fwd')
         ctx.save_for_backward(delta, w1, b1, w2, b2, w3, b3)
         return out
 
@@ -91,7 +91,7 @@ class _KernelMLP(torch.autograd.Function):
             None if d_delta is None else d_delta.data_ptr(),
             partials.data_ptr(), grads.data_ptr(), n, hd, blocks, stream)
         _build.check(status, 'kernel_mlp_bwd')
-        launches['bwd'] += 1
+        _build.count(launches, 'bwd')
         h = MAX_HIDDEN
         dw2 = grads[:h * h].view(h, h)[:hd, :hd]
         db2 = grads[h * h:h * h + hd]

@@ -90,7 +90,7 @@ class _Voxelize(torch.autograd.Function):
             weights.dtype == torch.bfloat16, key_dtype == torch.int64,
             stream)
         _build.check(status, 'voxelize_fwd')
-        launches['fwd'] += 1
+        _build.count(launches, 'fwd')
         ctx.save_for_backward(x, y, plane, valid)
         ctx.weight_dtype = weights.dtype
         return out
@@ -108,7 +108,7 @@ class _Voxelize(torch.autograd.Function):
             g.data_ptr(), dw.data_ptr(), x.shape[0], C, P, H, W,
             ctx.weight_dtype == torch.bfloat16, stream)
         _build.check(status, 'voxelize_bwd')
-        launches['bwd'] += 1
+        _build.count(launches, 'bwd')
         return None, None, None, dw, None, None, None, None
 
 

@@ -86,7 +86,7 @@ def corner_values(images, iy, ix):
                 images.data_ptr(), iy.data_ptr(), ix.data_ptr(),
                 out.data_ptr(), N, P, H, W, stream)
             _build.check(status, 'warp_corners')
-        launches['corners'] += 1
+        _build.count(launches, 'corners')
         return out
     if images.device.type == 'cpu':
         return plain(images, iy, ix)
@@ -106,7 +106,7 @@ class _GridSample(torch.autograd.Function):
             images.data_ptr(), grid.data_ptr(), out.data_ptr(), N, H, W, Ho,
             Wo, *grid.stride(), stream)
         _build.check(status, 'warp_fwd')
-        launches['fwd'] += 1
+        _build.count(launches, 'fwd')
         ctx.save_for_backward(images, grid)
         return out
 
@@ -123,7 +123,7 @@ class _GridSample(torch.autograd.Function):
             images.data_ptr(), grid.data_ptr(), g.data_ptr(), dgrid.data_ptr(),
             N, H, W, Ho, Wo, *grid.stride(), stream)
         _build.check(status, 'warp_bwd')
-        launches['bwd'] += 1
+        _build.count(launches, 'bwd')
         return None, dgrid
 
 

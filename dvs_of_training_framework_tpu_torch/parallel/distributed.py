@@ -132,11 +132,28 @@ def check_windows_agree(group):
                 f'the ranks staged different windows: this rank {n_valid} '
                 f'batches after {n_skipped} skipped, the ranks\' largest '
                 f'{extremes[:2].tolist()} and smallest '
-                f'{(-extremes[2:]).tolist()}; a shard over its capacity '
-                'was skipped on one rank alone (raise --event-capacity, or '
-                'train over preprocessed shards, whose skip rule every rank '
-                'shares)')
+                f'{(-extremes[2:]).tolist()}: the ranks must drop the '
+                'same batches (agree_on_drops, or the shards\' skip rule)')
     return check
+
+
+def agree_on_drops(group):
+    """``agree(drops, ended) -> (drops, ended)`` for
+    ``data.prefetch.prepare_agreed``: each rank's per-slot overflow marks
+    and end-of-stream flag, combined by one MAX all-reduce over ``group``
+    (a gloo group), so that a batch is dropped on every rank when any
+    rank's piece of it overflowed, and every rank stops when one
+    rank's stream ends.  Where the recorded counts describe nothing (a
+    stream served out of order, the raw loader), only the ranks' own
+    pieces tell, and a rank that dropped a batch alone would pair its
+    collectives with the others' next step."""
+    def agree(drops, ended=False):
+        flags = torch.tensor([int(ended)] + [int(d) for d in drops],
+                             dtype=torch.int32)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX, group=group)
+        flags = flags.tolist()
+        return [bool(f) for f in flags[1:]], bool(flags[0])
+    return agree
 
 
 def maybe_initialize_distributed(args, device):

@@ -15,25 +15,37 @@ the checkout), and every file is read through ``data/store.py``
 (the npy store, or HDF5 read with h5py).
 
     python -m dvs_of_training_framework_tpu_torch.test -m RUN -o OUT \
-        [-s STEP] [--use-ema] [--test-config CONFIG] [-d cuda]
+        [-s STEP] [--use-ema] [--test-config CONFIG] [-d cuda] \
+        [--tests_per_device N]
 
-The root CLI's ``DevicePool`` spreads checkpoints over a host's TPU
-cores; this one evaluates them in turn on one device, and accepts
-``--tests_per_device`` only to ignore it.  The device defaults to
-``cuda``; ``-d cuda`` without a card raises.  Convolutions and matmuls
-run in full fp32 (TF32 off), as the JAX package's 'highest'.  The
-plugin's ``OpticalFlow`` comes through the port's loader
+Every checkpoint of a run is scored through ``DevicePool``, the root
+CLI's scheduler (the reference's ``GPUPool``): a thread pool that puts
+each job on the device with the fewest outstanding jobs, at most
+``--tests_per_device`` (2 by default) on a device at once.  ``-d cuda``
+spreads the checkpoints over every visible card, ``-d cuda:i`` keeps them
+on that card, ``-d cpu`` on the CPU; a job on a card runs under that
+card and on a CUDA stream of its own, so that two jobs on one card
+overlap.  The kernels are built and loaded once before the jobs start,
+and the test matrix is loaded once and shared by every job.  ``-d
+cuda`` without a card raises.  Convolutions and matmuls run in full
+fp32 (TF32 off), as the JAX package's 'highest', and cuDNN takes its
+deterministic algorithms, so that a checkpoint's pickle does not depend
+on which card or job scored it.  The plugin's ``OpticalFlow`` comes
+through the port's loader
 (``--flownet_path``, ``models/loader.py``).  Evaluation windows hold one
 element each, so ``--max-sequence-length`` above 1 and context elements
 (``--prefix-length``, ``--suffix-length``) are refused (the root CLI
 would fail inside the model): a recurrent plugin's wrapper takes one
 element, a single ConvGRU step.
 """
+import contextlib
 import pickle
 import re
 import sys
 import tempfile
+import threading
 from argparse import ArgumentParser
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -63,9 +75,8 @@ def parse_args(argv=None):
         raise ValueError('--max-sequence-length, --prefix-length, '
                          '--suffix-length: evaluation windows hold one '
                          'element each')
-    if args.tests_per_device != parser.get_default('tests_per_device'):
-        print(f'--tests_per_device {args.tests_per_device}: checkpoints are '
-              'evaluated in turn on one device, ignored')
+    if args.tests_per_device < 1:
+        raise ValueError('--tests_per_device must be 1 or more')
     return args
 
 
@@ -264,14 +275,97 @@ def get_samples_passed(args):
     return int(state.get('samples_passed', fallback))
 
 
-def process_all(args):
+def pool_devices(name):
+    """The devices that ``-d name`` gives the pool: every visible card
+    for ``cuda``, the one card of ``cuda:i``, one CPU device for
+    ``cpu``."""
+    device = resolve_device(name)
+    if device.type == 'cuda' and device.index is None:
+        return [torch.device('cuda', i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+@contextlib.contextmanager
+def on_device(device):
+    """Run a job's work on ``device``: a card's as the thread's current
+    device, on a stream of its own, which is synchronized at the end."""
+    if device.type != 'cuda':
+        yield
+        return
+    stream = torch.cuda.Stream(device)
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
+    stream.synchronize()
+
+
+class DevicePool:
+    """Least-loaded scheduler of evaluation jobs across local devices.
+
+    The root CLI's ``DevicePool`` (the reference's ``GPUPool``): one
+    thread pool, each job on the device with the fewest outstanding
+    jobs, at most ``tests_per_device`` concurrent jobs a device.  A job
+    is ``func(job_args, device)`` and runs inside ``on_device(device)``;
+    the first job's exception, in submission order, is raised by the
+    call, once the jobs already running have ended.  Threads, as in the
+    JAX package: the model's work releases the GIL, the GT propagation's
+    NumPy mostly holds it.
+    """
+
+    def __init__(self, devices, tests_per_device=2):
+        self._devices = [torch.device(d) for d in devices]
+        self._pool = ThreadPoolExecutor(
+            max_workers=max(1, len(self._devices) * tests_per_device))
+        self._lock = threading.Lock()
+        self._load = {i: 0 for i in range(len(self._devices))}
+
+    def _acquire(self):
+        with self._lock:
+            idx = min(self._load, key=self._load.get)
+            self._load[idx] += 1
+            return idx
+
+    def _release(self, idx):
+        with self._lock:
+            self._load[idx] -= 1
+
+    def __call__(self, func, args_list):
+        def run(job_args):
+            idx = self._acquire()
+            try:
+                with on_device(self._devices[idx]):
+                    return func(job_args, self._devices[idx])
+            finally:
+                self._release(idx)
+
+        try:
+            futures = [self._pool.submit(run, a) for a in args_list]
+            for f in futures:
+                f.result()
+        finally:
+            self._pool.shutdown(cancel_futures=True)
+
+
+def process_all(args, devices=None):
+    """Score every checkpoint of ``args.model`` through ``DevicePool`` on
+    ``devices`` (``pool_devices(args.device)`` by default), then write
+    the TensorBoard scalars of every pickle."""
     args.__dict__.pop('step', None)
     per_step = [SimpleNamespace(step=s, **args.__dict__)
                 for s in Serializer(args.model).list_known_steps()]
+    devices = pool_devices(args.device) if devices is None else devices
+    if any(torch.device(d).type == 'cuda' for d in devices):
+        from .ops import _build
+        _build.library()    # built and loaded once, before the jobs
     # sequences are loaded once and shared read-only by every checkpoint
     matrix = build_test_matrix(args)
-    for step_args in per_step:
-        process_single(step_args, matrix)
+
+    def job(step_args, device):
+        # a copy of the job's arguments on its device (init_model)
+        process_single(SimpleNamespace(**dict(vars(step_args),
+                                              device=str(device))), matrix)
+
+    DevicePool(devices, args.tests_per_device)(job, per_step)
 
     writer = SummaryWriter(args.output / 'log')
     for step_args in per_step:
@@ -292,6 +386,7 @@ def main(argv=None):
     resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     if args.step is None:
         process_all(args)
     else:

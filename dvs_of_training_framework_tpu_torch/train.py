@@ -32,22 +32,36 @@ one call, a replay of one CUDA graph on a card.  Validation stages
 ``--validation-window`` batches a call (8 by default, 0 for one at a
 time).  A resumed run starts a new window at its checkpoint, so a window
 that divides the checkpoint and validation cadence keeps every window
-whole.  Over raw preprocessed shards a batch whose recorded event count
-exceeds the capacity is skipped without being read
-(``parallel.ShardedBatchSkipper``, from the shards' metadata): on one
-device with the loop's own rule and its skip line, processing rate and
-``General/skipped batches`` scalar, so the run is the one that decodes
-and drops such batches; a resume reads on from the batch after the last
-one trained (``data.preprocessed.stream_position``), so it repeats
-the uninterrupted run.  A stream served out of order (a non-blocking
-``--cache-dir``) is decoded, then skipped.  There and on a mesh a resume
-reads on from ``samples_passed``, as in the JAX package, which counts no
-skipped batch.  On a mesh every rank stages windows of its own pieces,
-and a window runs by the backend's rule, which rank 0 prints beside the
-backend: one CUDA graph replay with its NCCL all-reduces inside under
-NCCL, its steps eagerly in one call under gloo and on the CPU
-(``parallel.window_rule``); the ranks check that they staged the same
-windows.  Validation on a mesh runs per batch, as in the JAX package.
+whole.  An oversized batch is skipped by one of two rules:
+
+- Where the shards' recorded event counts describe the batches served
+  (raw preprocessed shards read in order), a batch whose recorded count
+  exceeds the capacity is skipped without being read
+  (``parallel.ShardedBatchSkipper``, from the shards' metadata): on one
+  device with the loop's own rule and its skip line, processing rate
+  and ``General/skipped batches`` scalar, so the run is the one that
+  decodes and drops such batches; on a mesh when the fullest data shard
+  exceeds a shard's capacity, the same decisions on every rank from the
+  same counts, skipped silently as in the JAX package.  A resume reads
+  on from the batch after the last one trained
+  (``data.preprocessed.stream_position``, at the mesh's rule on a mesh),
+  so it repeats the uninterrupted run.
+- Where they describe nothing (a stream served out of order by a
+  non-blocking ``--cache-dir``, and the raw loader), a batch is decoded,
+  then dropped when it overflows: on a mesh on every rank when any
+  rank's piece overflowed (``parallel.agree_on_drops``: one small
+  all-reduce a window, or a batch), so the ranks step the same batches.
+  (A mesh's ranks agree over an ordered stream too, where the skipper
+  has left them nothing to drop.)  A resume reads on from
+  ``samples_passed``, as in the JAX package, which counts no skipped
+  batch.
+
+On a mesh every rank stages windows of its own pieces, and a window runs
+by the backend's rule, which rank 0 prints beside the backend: one CUDA
+graph replay with its NCCL all-reduces inside under NCCL, its steps
+eagerly in one call under gloo and on the CPU (``parallel.window_rule``);
+the ranks check that they staged the same windows.  Validation on a mesh
+runs per batch, as in the JAX package.
 
 Several devices, one process each (``parallel/``):
 
@@ -80,9 +94,10 @@ from .data.dataloader import (choose_data_path, get_dataloader,
 from .losses import LOSS_PRECISIONS, MultiScaleLoss
 from .models import init_model, load_model_class
 from .ops import launch_counts
-from .parallel import (MeshGroups, ShardedBatchSkipper, broadcast_batches,
-                       check_replicas, check_windows_agree, distributed_spec,
-                       initialize, make_sharded_eval_step,
+from .parallel import (MeshGroups, ShardedBatchSkipper, agree_on_drops,
+                       broadcast_batches, check_replicas,
+                       check_windows_agree, distributed_spec, initialize,
+                       make_sharded_eval_step,
                        make_sharded_fused_window_step,
                        make_sharded_train_step, maybe_initialize_distributed,
                        parse_mesh, shard_of, split_batch_for_mesh)
@@ -265,7 +280,7 @@ def run(args, train_loader_factory, val_loader_factory, logger,
     window = args.device_queue_window
     val_window = args.validation_window if groups is None else 0
     fused = window > 0 and window % args.accum_step == 0
-    train_step_fused = fused_eval_step = window_check = None
+    train_step_fused = fused_eval_step = window_check = agree = None
     if groups is None:
         train_step = make_train_step(model, evaluator, optimizer,
                                      args.loss_weights, args.accum_step,
@@ -290,6 +305,9 @@ def run(args, train_loader_factory, val_loader_factory, logger,
                 event_axis=event_axis)
         if window > 0:
             window_check = check_windows_agree(groups.world_host_group)
+        if args.is_raw:
+            # a batch that overflows on any rank is dropped on all
+            agree = agree_on_drops(groups.world_host_group)
 
         def prepare_batch(collated, capacity):
             # this rank's batch is its data shard; cut its event slice
@@ -376,7 +394,8 @@ def run(args, train_loader_factory, val_loader_factory, logger,
             samples_scale=1 if groups is None else groups.mesh.data,
             window=window,
             train_step_fused=train_step_fused,
-            window_check=window_check)
+            window_check=window_check,
+            agree=agree)
 
     if groups is not None:
         check_replicas(model, groups, 'after training')
@@ -455,33 +474,31 @@ def run_rank(args, groups):
         if not args.is_raw or args.preprocessed_dataset_path is None:
             return loader       # a dense batch is never skipped
         # oversized batches are skipped unread, from the shards' event
-        # counts
+        # counts, where those describe the batches served
         from .data.preprocessed import (per_sample_event_counts,
                                         stream_position)
-        counts = per_sample_event_counts(args.preprocessed_dataset_path)
-        capacity = min(args.event_capacity, args.max_events_per_batch)
-        if groups is not None:
-            # the same decisions on every data rank
-            return ShardedBatchSkipper(
-                loader, counts, global_batch=args.mbs,
-                n_shards=groups.mesh.data,
-                capacity_per_shard=shard_capacity(capacity, groups),
-                start_sample=samples_passed)
         if not loader.in_order:
             # the recorded counts would not describe the batch served:
-            # decode, then skip
+            # decode, then skip (on a mesh the ranks decide together)
             return loader
+        counts = per_sample_event_counts(args.preprocessed_dataset_path)
+        capacity = min(args.event_capacity, args.max_events_per_batch)
         # one rank: the loop's own decisions (its capacity, no 4096
-        # floor), each skip reported to the loop; a resume reads on from
-        # the batch after the last one trained
+        # floor), each skip reported to the loop; a mesh: the fullest
+        # data shard against a shard's capacity, the same decisions on
+        # every rank from the same counts, skipped silently.  Either
+        # resumes at the batch after the last one trained
+        n_shards = 1 if groups is None else groups.mesh.data
+        if groups is not None:
+            capacity = shard_capacity(capacity, groups)
         position = stream_position(counts, args.mbs, capacity,
-                                   samples_passed)
+                                   samples_passed, n_shards)
         if position != samples_passed:
             loader.set_index(position)
         return ShardedBatchSkipper(
-            loader, counts, global_batch=args.mbs, n_shards=1,
+            loader, counts, global_batch=args.mbs, n_shards=n_shards,
             capacity_per_shard=capacity, start_sample=position,
-            report_skips=True)
+            report_skips=groups is None)
 
     def train_loader_factory(samples_passed):
         if groups is None or groups.mesh.event == 1:

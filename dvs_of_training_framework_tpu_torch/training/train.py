@@ -9,7 +9,9 @@ samples passed, periodic hooks run at optimizer-step boundaries, and a
 validation pass logs the mean loss terms.  The TensorBoard tags and
 values are the JAX loop's.  A rank of a multi-process run hands both a
 ``prepare_batch`` that cuts its piece out of each host batch
-(``parallel/mesh.py``), and counts samples globally (``samples_scale``).
+(``parallel/mesh.py``), and counts samples globally (``samples_scale``);
+the ranks drop together a batch whose piece overflowed on any of them
+(``agree``).
 A batch that the reader skipped unread arrives as a record of its
 recorded event count (``data.schema.SKIPPED_EVENTS``) and is reported as
 a decoded oversized batch is.
@@ -109,7 +111,8 @@ def train(train_step,
           samples_scale: int = 1,
           window: int = 0,
           train_step_fused=None,
-          window_check=None):
+          window_check=None,
+          agree=None):
     """Run the training loop.
 
     Args:
@@ -160,6 +163,11 @@ def train(train_step,
             with every staged window before it is stepped; on a mesh
             ``parallel.check_windows_agree`` raises unless every rank
             staged the same, so the ranks' collectives pair the same steps.
+        agree: on a mesh, ``parallel.agree_on_drops``: a batch that
+            overflowed on any rank is dropped on every rank (one small
+            all-reduce a window, or a batch with ``window = 0``), so that
+            the ranks step the same batches where nothing else makes
+            their decisions agree.
 
     Returns:
         (state, samples_passed)
@@ -355,7 +363,7 @@ def train(train_step,
                 'queue')
         from ..data.device_queue import prefetch_windows
         stream = prefetch_windows(iter(loader), make_batch, window,
-                                  device=device)
+                                  device=device, agree=agree)
         timers('batch_construction').start()
         done = False
         for host_batches, device_window, n_valid, skipped in stream:
@@ -390,7 +398,8 @@ def train(train_step,
         flush_metrics()
         return state, samples_passed
 
-    stream = prefetch_to_device(iter(loader), make_batch, device)
+    stream = prefetch_to_device(iter(loader), make_batch, device,
+                                agree=agree)
     timers('batch_construction').start()
     for batch, device_batch in stream:
         if global_step == num_steps * accumulation_steps:

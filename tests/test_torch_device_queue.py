@@ -10,10 +10,12 @@ The setup of tests/test_torch_train_loop.py: EVFlowNet at depth 4, base 8,
 - The windowed loop, with ``make_fused_window_step``, against the JAX
   package's ``train(window=K, train_step_fused=...)``: a partial tail, a
   window larger than the stream, a hook inside every window (the per-slot
-  path) and accumulation over a fused window.  Parameters, per-step
-  losses and logged values take tests/training/test_device_queue.py's
-  tolerances (rtol 1e-4, atol 1e-5 for parameters, 1e-7 for scalars);
-  samples, skips and hook calls are equal exactly.
+  path), accumulation over a fused window, and a fused window inside
+  which the delayed representation group starts and ramps up.
+  Parameters, per-step losses and logged values take
+  tests/training/test_device_queue.py's tolerances (rtol 1e-4, atol 1e-5
+  for parameters, 1e-7 for scalars); samples, skips and hook calls are
+  equal exactly.
 - The port's windowed runs against its own ``window=0`` run, bit for bit
   on the CPU: raw, dense (``--ev_images`` batches) and dynamic sample
   lengths, fused and slot by slot, with accumulation.
@@ -156,8 +158,10 @@ def test_prefetch_windows_matches_jax(depth):
                                   tail.images[1].numpy())
 
 
-def run_jax(loader, window, num_steps, accumulation, every, fused):
-    model, params, tx = jax_setup(ARGS)
+def run_jax(loader, window, num_steps, accumulation, every, fused,
+            args=None):
+    args = args or ARGS
+    model, params, tx = jax_setup(args)
     evaluator = JaxMultiScaleLoss(SHAPES)
     step = jax_state.make_train_step(model, evaluator, tx, WEIGHTS,
                                      accumulation, window=window)
@@ -171,7 +175,7 @@ def run_jax(loader, window, num_steps, accumulation, every, fused):
                                         every)
     state, samples = jax_train.train(
         step, state, loader, num_steps, logger, TAGS,
-        lr_fn=lambda s: jax_opt.current_learning_rates(ARGS, s),
+        lr_fn=lambda s: jax_opt.current_learning_rates(args, s),
         accumulation_steps=accumulation, event_capacity=CAPACITY,
         hooks={'record': hook}, metric_flush_steps=3, window=window,
         train_step_fused=step_fused)
@@ -235,6 +239,30 @@ def test_windowed_train_matches_jax(case):
     loader, fused = stream(n, bad_at), True
     want = run_jax(loader, window, steps, accumulation, every, fused)
     got = run_port(loader, window, steps, accumulation, every, fused)
+    assert_port_matches_jax(got, want)
+
+
+def test_a_window_across_the_representation_start_matches_jax():
+    """The delayed representation group starts (``delay_steps`` 2 of 8)
+    and ramps up over its rewarmup inside the first fused window of 4:
+    against the JAX package's ``train()`` and bit for bit the port's
+    one-batch-at-a-time run."""
+    from types import SimpleNamespace
+    args = SimpleNamespace(**dict(vars(ARGS), training_steps=8, rs=0.25,
+                                  representation_warmup_steps=2))
+    loader = stream(8)
+    want = run_jax(loader, 4, 8, 1, 4, True, args=args)
+    got = run_port(loader, 4, 8, 1, 4, True, args=args)
+    assert_port_matches_jax(got, want)
+    rates = [v for t, v, _ in got[4] if t == 'General/learning rate/0']
+    assert rates[:2] == [0.0, 0.0] and 0 < rates[2] < rates[3]
+    eager = run_port(loader, 0, 8, 1, 4, False, args=args)
+    assert_bits(got[0], eager[0])
+    assert_bits(got[1], eager[1])
+    assert got[2:] == eager[2:]
+
+
+def assert_port_matches_jax(got, want):
     assert got[2:4] == want[1:3]
     assert got[5] == want[4]
     assert [(t, s) for t, _, s in got[4]] == [(t, s) for t, _, s in want[3]]
