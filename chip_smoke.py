@@ -258,7 +258,24 @@ Phases:
     (the union of its device ops' intervals over the run's wall time)
     of the traced ones; where the machine has two cards or more, ``-d
     cuda`` spreads the checkpoints over every card and its pickles equal
-    one card's.
+    one card's;
+33. the file cache for slow storage (``--cache-dir``):
+    ``tools.prepare_batches`` writes 100 samples of phase 14's raw split
+    in 7 files (the last of 4), then ``train.main()`` takes 48 recipe
+    steps (3 windows of 16, checkpoints and validation every 16) with no
+    cache, the warm path (``--cache-size 8``), the strict iterator
+    (``--cache-size 3 --process-only-once``) and the non-blocking one
+    (``--cache-size 3``, each copy held back CACHE_DELAY seconds, so
+    that it serves cached files again): the warm and strict runs equal
+    the uncached run bit for bit (losses, validation losses, the last
+    checkpoint's parameters and optimizer state); then the non-blocking
+    cache on ``--mesh data:2``, two gloo ranks sharing the card, 48
+    steps.  In every run each slice the reader reads must lie inside its
+    served file, and the non-blocking runs must serve a file again on
+    one rank and on each rank of the mesh.  Per run: seconds, loop step,
+    ms reading a batch, MB copied, files served and served again.
+    ``python3 chip_smoke.py --phase 33`` builds the kernels and phase
+    14's set and runs this phase alone.
 
 Every phase from 17 on prints its own seconds.  A window (phases 11, 18,
 21, 28, 29, 30) runs as one CUDA graph replay where it covers whole
@@ -365,6 +382,16 @@ WINDOW_MAIN_STEPS = 4 * WINDOW
 # ranks sharing the card and of the spawned mesh's main() (phase 24's
 # checkpoint cadence)
 MESH_GRAPH_WINDOW, MESH_WINDOW = 8, 4
+# phase 33: the file cache's set (prepare_batches over phase 14's raw
+# split: 6 files of 16 samples and a last of 4), the steps of each run
+# (3 windows of 16: the second interval between windows is the first
+# without the graph's capture), and the seconds each copy into the cache
+# is held back, as from storage that copies one 15-30 MB file in that
+# time
+CACHE_SAMPLES, CACHE_FILE_SAMPLES = 100, 16
+CACHE_STEPS = 3 * WINDOW
+CACHE_DELAY = 0.5
+CACHE_PROBE_ENV = 'CHIP_SMOKE_CACHE_PROBE'
 
 
 MLP_GRADS = ['delta', 'w1', 'b1', 'w2', 'b2', 'w3', 'b3']
@@ -890,6 +917,100 @@ class LoopClock:
     def hook_seconds(self, name, every):
         return [s for j, n, s in self.hook_spans
                 if n == name and j % every == 0]
+
+
+def tree_bytes(path):
+    """Bytes of a file, or of every file under a directory (a shard of
+    the npy store)."""
+    path = Path(path)
+    if path.is_dir():
+        return sum(f.stat().st_size for f in path.rglob('*') if f.is_file())
+    return path.stat().st_size
+
+
+class CacheProbe:
+    """Phase 33's view of the file cache (``--cache-dir``), installed on
+    the port's classes for one run and removed after it: each copy into
+    the cache held back ``delay`` seconds and counted with its bytes; each
+    file the non-blocking cache serves counted, and each copy it serves
+    again (a re-serve); each slice the reader reads checked to lie inside
+    its served file (else it raises).  In a spawned rank (``report``) it
+    also hands ``run()`` a ``LoopClock`` and writes its counts and the
+    clock's times to ``report`` as JSON."""
+
+    def __init__(self, delay=0.0, report=None):
+        self.delay, self.report = delay, report
+        self.copies = self.bytes = self.visits = self.reserves = 0
+        self.slices = self.samples = self.rank = 0
+        self.served, self.saved, self.clock = set(), [], None
+
+    def install(self):
+        from dvs_of_training_framework_tpu_torch import train as cli
+        from dvs_of_training_framework_tpu_torch.data import \
+            file_iterators as fi
+        from dvs_of_training_framework_tpu_torch.data.preprocessed import \
+            PreprocessedDataloader as Reader
+        probe = self
+        copy, serve = fi.FileLoader.__call__, fi.NonBlockingFileIterator.next
+        read, run = Reader._read_slice, cli.run
+
+        def slow_copy(loader, filename):
+            time.sleep(probe.delay)
+            cached = copy(loader, filename)
+            probe.copies += 1
+            probe.bytes += tree_bytes(cached)
+            return cached
+
+        def counted_serve(iterator, block=True):
+            served = serve(iterator, block)
+            if served is not None:
+                probe.visits += 1
+                probe.reserves += served.name in probe.served
+                probe.served.add(served.name)
+            return served
+
+        def checked_read(reader, shard, begin, end):
+            size = len(shard['elements_per_sample'])
+            if not 0 <= begin < end <= size:
+                raise AssertionError(
+                    f'[33] slice [{begin}, {end}) of '
+                    f'{reader.current_file.name}, a file of {size} samples')
+            probe.slices += 1
+            probe.samples += end - begin
+            probe.rank = reader.process_index
+            return read(reader, shard, begin, end)
+
+        def clocked_run(*args, **kwargs):
+            probe.clock = LoopClock()
+            try:
+                return run(*args, timers=probe.clock, **kwargs)
+            finally:
+                Path(probe.report).write_text(json.dumps(probe.numbers()))
+
+        patches = [(fi.FileLoader, '__call__', slow_copy),
+                   (fi.NonBlockingFileIterator, 'next', counted_serve),
+                   (Reader, '_read_slice', checked_read)]
+        if self.report is not None:
+            patches.append((cli, 'run', clocked_run))
+        for owner, name, fn in patches:
+            self.saved.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, fn)
+        return self
+
+    def remove(self):
+        for owner, name, fn in reversed(self.saved):
+            setattr(owner, name, fn)
+        self.saved = []
+
+    def numbers(self):
+        out = {'rank': self.rank, 'copies': self.copies,
+               'mb_copied': self.bytes / 1e6, 'visits': self.visits,
+               'reserves': self.reserves, 'slices': self.slices,
+               'samples': self.samples}
+        if self.clock is not None:
+            out['step_ms'] = self.clock.window_ms(WINDOW)
+            out['read_ms'] = self.clock.window_read_ms(WINDOW)
+        return out
 
 
 def flat_state(tree, prefix=''):
@@ -4102,6 +4223,220 @@ def eval_pool_phase(out, device, card, counters):
         'busy_share': busy, 'cards': multi}
 
 
+def cache_phase(out, capacity, device, card, counters):
+    """Phase 33: ``train.main()`` over a set of 7 shards through each
+    ``--cache-dir`` policy: none, the warm path, the strict iterator and
+    the non-blocking one (copies held back CACHE_DELAY seconds, so that
+    it serves cached files again), then the non-blocking one on ``--mesh
+    data:2``.  The warm and strict runs equal the no-cache run bit for
+    bit; every slice of every run lies inside its served file.  Returns
+    the one-rank runs' launch counts, the mesh's and the numbers."""
+    from dvs_of_training_framework_tpu_torch import train as cli
+    from dvs_of_training_framework_tpu_torch.data import store
+    from dvs_of_training_framework_tpu_torch.tools import prepare_batches
+    from dvs_of_training_framework_tpu_torch.training.serializer import \
+        Serializer
+    t_phase = time.perf_counter()
+    shards = out / 'shards_cache'
+    # batches of 4 samples: a file closes at CACHE_FILE_SAMPLES, the last
+    # holds the rest
+    prepare_batches.main(prepare_batches.parse_args(
+        ['-o', str(shards), '-s', str(CACHE_SAMPLES), '--samples-per-file',
+         str(CACHE_FILE_SAMPLES), '-mbs', '4']))
+    files = sorted(shards.glob('*.hdf5'), key=lambda p: int(p.stem))
+    sizes = []
+    for f in files:
+        with store.open_file(f, 'r') as shard:
+            sizes.append(len(shard['elements_per_sample']))
+    set_mb = sum(tree_bytes(f) for f in files) / 1e6
+    print(f'[33] prepare_batches -s {CACHE_SAMPLES} --samples-per-file '
+          f'{CACHE_FILE_SAMPLES} -mbs 4 over phase 14\'s raw split in '
+          f'{time.perf_counter() - t_phase:.2f} s: files of {sizes} samples,'
+          f' {set_mb:.1f} MB; each copy into a cache held back {CACHE_DELAY} '
+          's (slow storage)')
+    if sizes[-1] >= CACHE_FILE_SAMPLES or sum(sizes) != CACHE_SAMPLES:
+        raise AssertionError(f'[33] files of {sizes} samples')
+    policies = {'no cache': [],
+                'warm': ['--cache-size', '8'],
+                'strict': ['--cache-size', '3', '--process-only-once'],
+                'non-blocking': ['--cache-size', '3']}
+    runs, launches = {}, {}
+    for i, (name, flags) in enumerate(policies.items()):
+        run = out / f'run_cache_{i}'
+        argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
+                '-ne', str(CACHE_STEPS), '--preprocessed-dataset-path',
+                str(shards), '--checkpointing_interval', str(WINDOW),
+                '--permanent_interval', str(WINDOW), '-vp', str(WINDOW),
+                '--event-capacity', str(capacity)] + RECIPE_FLAGS
+        if flags:
+            argv += ['--cache-dir', str(out / f'cache_{i}')] + flags
+        probe = CacheProbe(CACHE_DELAY if name == 'non-blocking' else 0.0)
+        clock = LoopClock()
+        run_fn = cli.run
+        probe.install()
+        cli.run = lambda *a, **k: run_fn(*a, timers=clock, **k)
+        reset(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            cli.main(argv)
+        finally:
+            cli.run = run_fn
+            probe.remove()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts(counters)
+        scalars = read_scalars(run / 'log')
+        state = Serializer(run).read_state_dict(CACHE_STEPS)
+        runs[name] = SimpleNamespace(
+            seconds=seconds, counts=counts, probe=probe.numbers(),
+            step_ms=statistics.median(clock.window_ms(WINDOW)),
+            read_ms=statistics.median(clock.window_read_ms(WINDOW)),
+            losses=scalars.get('General/Train loss', []),
+            val_losses=scalars.get('General/Validation loss', []),
+            params=flat_state(state['model']),
+            entries=flat_state(state['optimizer']))
+        arm = runs[name]
+        passes = arm.probe['samples'] / CACHE_SAMPLES
+        print(f'[33] {name}{" (" + " ".join(flags) + ")" if flags else ""}:'
+              f' {CACHE_STEPS} recipe steps in windows of {WINDOW}, '
+              f'{seconds:.2f} s; loop step {arm.step_ms:.3f} ms, reading a '
+              f'batch {arm.read_ms:.3f} ms (batch_construction over a '
+              f'window, medians of the windows after the first); '
+              f'{arm.probe["mb_copied"]:.1f} MB copied in '
+              f'{arm.probe["copies"]} copies; {arm.probe["slices"]} slices '
+              f'over {passes:.2f} passes, each inside its file; '
+              + (f'{arm.probe["visits"]} files served, '
+                 f'{arm.probe["reserves"]} of them again '
+                 f'({arm.probe["reserves"] / passes:.2f} a pass)'
+                 if name == 'non-blocking' else 'served in file order')
+              + f'; losses {arm.losses[0]:.5f} .. {arm.losses[-1]:.5f}; '
+              f'launches {counts}; card: {card}')
+        if (len(arm.losses) != CACHE_STEPS
+                or not np.isfinite(arm.losses + arm.val_losses).all()
+                or counts['voxelize_bwd'] != CACHE_STEPS + 1
+                or not arm.probe['slices']):
+            raise AssertionError(f'[33] {name}: losses {arm.losses}, '
+                                 f'launches {counts}, {arm.probe}')
+        launches[name] = counts
+    want = runs['no cache']
+    for name in ('warm', 'strict'):
+        arm = runs[name]
+        same = (arm.losses == want.losses
+                and arm.val_losses == want.val_losses
+                and arm.params.keys() == want.params.keys()
+                and all(bits_equal(v, want.params[k])
+                        for k, v in arm.params.items())
+                and arm.entries.keys() == want.entries.keys()
+                and all(bits_equal(v, want.entries[k])
+                        for k, v in arm.entries.items()))
+        print(f'[33] {name} against no cache: {len(arm.losses)} losses, '
+              f'{len(arm.val_losses)} validation losses, '
+              f'{len(arm.params)} parameters and {len(arm.entries)} '
+              f'optimizer entries of step {CACHE_STEPS}: equal bit for bit: '
+              f'{same}')
+        if not same:
+            raise AssertionError(f'[33] the {name} cache changed the run')
+    if not runs['non-blocking'].probe['reserves']:
+        raise AssertionError('[33] the non-blocking cache served no file '
+                             'again')
+
+    # --- the non-blocking cache on a mesh: two spawned gloo ranks ------
+    t0 = time.perf_counter()
+    run, reports = out / 'run_cache_mesh', out / 'cache_probes'
+    reports.mkdir()
+    argv = ['-m', str(run), '-d', device.type, '-bs', '8', '-mbs', '8',
+            '-ne', str(CACHE_STEPS), '--preprocessed-dataset-path',
+            str(shards), '--checkpointing_interval', str(CACHE_STEPS),
+            '--permanent_interval', str(CACHE_STEPS),
+            '--skip-validation', '--event-capacity', str(2 * capacity),
+            '--mesh', 'data:2', '--cache-dir', str(out / 'cache_mesh'),
+            '--cache-size', '3'] + RECIPE_FLAGS
+    # the spawned ranks run this file again as __mp_main__ and install
+    # the probe there (the end of this file)
+    os.environ[CACHE_PROBE_ENV] = json.dumps(
+        {'delay': CACHE_DELAY, 'report': str(reports)})
+    try:
+        ranks = cli.main(argv)
+    finally:
+        del os.environ[CACHE_PROBE_ENV]
+    seconds = time.perf_counter() - t0
+    check_run_dir('[33] mesh', run, ranks, CACHE_STEPS, 8)
+    mesh_launches = check_rank_launches('[33] mesh', ranks,
+                                        CACHE_STEPS)
+    losses = read_scalars(run / 'log').get('General/Train loss', [])
+    probes = [json.loads((reports / f'{r["pid"]}.json').read_text())
+              for r in ranks]
+    print(f'[33] train.main() --mesh data:2 --cache-dir --cache-size 3 '
+          f'(non-blocking), two gloo ranks sharing the card, '
+          f'{CACHE_STEPS} recipe steps in windows of {WINDOW}: '
+          f'{seconds:.2f} s with the two processes\' start; losses '
+          f'{losses[0]:.5f} .. {losses[-1]:.5f}; launches {mesh_launches}; '
+          f'card: {card}')
+    for p in probes:
+        passes = p['samples'] * 2 / CACHE_SAMPLES
+        print(f'  rank {p["rank"]}: loop step '
+              f'{statistics.median(p["step_ms"]):.3f} ms, reading a batch '
+              f'{statistics.median(p["read_ms"]):.3f} ms; '
+              f'{p["mb_copied"]:.1f} MB copied in {p["copies"]} copies; '
+              f'{p["slices"]} slices over {passes:.2f} passes of its '
+              f'stream, each inside its file; {p["visits"]} files served, '
+              f'{p["reserves"]} of them again ({p["reserves"] / passes:.2f} '
+              'a pass)')
+    if (len(losses) != CACHE_STEPS or not np.isfinite(losses).all()
+            or sorted(p['rank'] for p in probes) != [0, 1]
+            or not all(p['reserves'] and p['slices'] for p in probes)):
+        raise AssertionError(f'[33] mesh: losses {losses}, ranks {probes}')
+    print(f'[33] {time.perf_counter() - t_phase:.2f} s')
+    total = {k: sum(c[k] for c in launches.values()) for k in counters}
+    numbers = {name: {'seconds': arm.seconds, 'step_ms': arm.step_ms,
+                      'read_ms': arm.read_ms, **arm.probe}
+               for name, arm in runs.items()}
+    numbers['mesh'] = {'seconds': seconds, 'ranks': probes}
+    numbers['delay_s'] = CACHE_DELAY
+    return total, mesh_launches, numbers
+
+
+def launch_counters():
+    """``{kernel: (its wrapper's counter, key)}``."""
+    from dvs_of_training_framework_tpu_torch.ops import (
+        kernel_mlp_cuda, voxel_cuda, warp_cuda)
+    return {'voxelize_fwd': (voxel_cuda.launches, 'fwd'),
+            'voxelize_bwd': (voxel_cuda.launches, 'bwd'),
+            'kernel_mlp_fwd': (kernel_mlp_cuda.launches, 'fwd'),
+            'kernel_mlp_bwd': (kernel_mlp_cuda.launches, 'bwd'),
+            'corner_values': (warp_cuda.launches, 'corners'),
+            'warp_fwd': (warp_cuda.launches, 'fwd'),
+            'warp_bwd': (warp_cuda.launches, 'bwd')}
+
+
+def cache_alone():
+    """``python3 chip_smoke.py --phase 33``: the kernels' build, phase
+    14's set, then phase 33 alone (no kernels line)."""
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device available', file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from dvs_of_training_framework_tpu_torch.data import synthetic
+    from dvs_of_training_framework_tpu_torch.ops import _build
+    device, card = torch.device('cuda', 0), card_line()
+    print(f'[1] card: {card}')
+    _build.build()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_data_') as out:
+        out = Path(out)
+        print('[14] ' + ', '.join(f'{tool} {s:.2f} s' for tool, s in
+                                  build_synthetic(out / 'synth',
+                                                  out / 'shards').items()))
+        paths = cache_phase(out, synthetic.CAPACITY, device, card,
+                            launch_counters())
+    print(json.dumps({'cache': paths[2], 'launches': paths[:2]}))
+    print(f'card: {card}')
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device available', file=sys.stderr)
@@ -4115,13 +4450,7 @@ def main():
     from dvs_of_training_framework_tpu_torch.ops.resize import \
         resize_bilinear
 
-    counters = {'voxelize_fwd': (voxel_cuda.launches, 'fwd'),
-                'voxelize_bwd': (voxel_cuda.launches, 'bwd'),
-                'kernel_mlp_fwd': (kernel_mlp_cuda.launches, 'fwd'),
-                'kernel_mlp_bwd': (kernel_mlp_cuda.launches, 'bwd'),
-                'corner_values': (warp_cuda.launches, 'corners'),
-                'warp_fwd': (warp_cuda.launches, 'fwd'),
-                'warp_bwd': (warp_cuda.launches, 'bwd')}
+    counters = launch_counters()
 
     # --- 1. device and build ---------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4586,6 +4915,11 @@ def main():
         launches['eval_pool'], eval_pool = eval_pool_phase(
             Path(out), device, card, counters)
 
+        # --- 33. the slow-storage file cache through main(), one rank
+        # and a mesh -------------------------------------------------------
+        launches['cache_main'], launches['cache_mesh_main'], cache = \
+            cache_phase(Path(out), capacity, device, card, counters)
+
     # the main paths' launches: the recipe's bare steps, the loop, main()
     # and the evaluation CLI, then RecurrentFlowNet's step, main() and
     # evaluation, the dynamic-length run() and DummyFlowNet's, the bake,
@@ -4596,15 +4930,16 @@ def main():
     # window steps as graph replays and main() with the default windows,
     # the recipe's sharded windows as a one-rank NCCL group's graph
     # replays and the spawned mesh's main() with windows,
-    # RecurrentFlowNet's main() skipping oversized batches unread, and the
-    # evaluation CLI's DevicePool
+    # RecurrentFlowNet's main() skipping oversized batches unread, the
+    # evaluation CLI's DevicePool, and main() through each file cache
+    # policy on one rank and the non-blocking one on a mesh
     paths = ('recipe', 'loop', 'main', 'eval', 'recurrent_step',
              'recurrent_main', 'recurrent_eval', 'sequences', 'dummy',
              'bake', 'dense_main', 'dense_step', 'host_images',
              'dummy_dense', 'sharded_step', 'mesh_main', 'mesh_event_main',
              'hosts_main', 'visualize', 'recurrent_visualize', 'accuracy',
              'window', 'window_main', 'mesh_window', 'mesh_window_main',
-             'skip_main', 'eval_pool')
+             'skip_main', 'eval_pool', 'cache_main', 'cache_mesh_main')
     for entry in kernels:
         name = entry['name']
         entry['launches'] = sum(launches[path][name] for path in paths)
@@ -4625,6 +4960,7 @@ def main():
     print(json.dumps({'mesh_window': mesh_window}))
     print(json.dumps({'skip': skip}))
     print(json.dumps({'eval_pool': eval_pool}))
+    print(json.dumps({'cache': cache}))
     print(json.dumps({'kernels': kernels}))
     print(f'card: {card}')
     print(json.dumps({'ok': True, 'device': {
@@ -4633,5 +4969,13 @@ def main():
     return 0
 
 
+if __name__ == '__mp_main__' and CACHE_PROBE_ENV in os.environ:
+    # a rank that phase 33's mesh spawned: its copies held back and its
+    # reads checked as in the launching process, its counts written to
+    # <report>/<pid>.json
+    _probe = json.loads(os.environ[CACHE_PROBE_ENV])
+    CacheProbe(_probe['delay'],
+               Path(_probe['report']) / f'{os.getpid()}.json').install()
+
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(cache_alone() if sys.argv[1:] == ['--phase', '33'] else main())

@@ -180,8 +180,11 @@ class PreprocessedDataloader:
     sample slice of each stride — each host reads and decodes 1/P of the
     data instead of collating the full global batch and slicing
     (reference analogue: per-worker torch loaders, utils/dataloader.py:
-    103-108).  ``set_index`` still takes the GLOBAL sample index; the
-    skip to the local slice is pure shard-size arithmetic (no reads).
+    103-108).  ``set_index`` still takes the GLOBAL sample index; on an
+    ordered stream the skip to the local slice is pure shard-size
+    arithmetic (no reads).  A stream served out of order (a non-blocking
+    cache) is the sequence of files the cache serves, each counted by its
+    own samples, and a rank takes its slices of its own such stream.
 
     Attributes:
         sample_index: next sample within the current shard.
@@ -253,6 +256,12 @@ class PreprocessedDataloader:
         Sharded: ``idx`` counts samples of the global stream; the loader
         seeks to this process's slice of the global batch containing
         ``idx`` (resume passes the checkpoint's global samples_passed).
+
+        A stream served out of order (``in_order`` false) walks the files
+        the restarted cache serves, each by its own sample count, from
+        ``idx`` as the JAX package does.  Which files those are depends on
+        how fast the copies finish, so such a resume is not exact, in
+        either package.
         """
         if self.process_count > 1:
             stride = self.batch_size * self.process_count
@@ -263,17 +272,18 @@ class PreprocessedDataloader:
         self.iterator.reset()
         self._shard = 0
         self.current_file = self.iterator.next()
-        while remaining >= self._shard_sizes[self._shard]:
-            remaining -= self._shard_sizes[self._shard]
+        while remaining >= self._visit_size():
+            remaining -= self._visit_size()
             self._advance_shard()
         self.sample_index = remaining
 
     def _skip(self, n: int):
         """Advance the stream position ``n`` samples without decoding
-        (pure shard-size arithmetic; files are cycled, not read)."""
+        (on an ordered stream pure shard-size arithmetic: files are
+        cycled, not read)."""
         remaining = self.sample_index + n
-        while remaining >= self._shard_sizes[self._shard]:
-            remaining -= self._shard_sizes[self._shard]
+        while remaining >= self._visit_size():
+            remaining -= self._visit_size()
             self._advance_shard()
         self.sample_index = remaining
 
@@ -283,16 +293,31 @@ class PreprocessedDataloader:
         rule advances every process past the same global batch)."""
         self._skip(self.batch_size * self.process_count)
 
-    def _shard_meta(self, shard):
-        """The served file's size metadata, read once a visit:
-        re-reading the full ``elements_per_sample``/``events_per_element``
-        arrays on every batch was a fixed ~ms-scale cost per __next__.
-        Keyed by the file served, not by the stream's shard index: a
-        non-blocking cache serves files out of order, and the JAX
-        package's cache by shard index then reads one file's events with
-        another's sizes."""
+    def _visit_size(self) -> int:
+        """Samples of the file being served.  An ordered stream counts by
+        shard index, from the table (no read).  A stream served out of
+        order counts the served file's own samples: the cache may hand
+        out a short shard where a long one stands in the stream, or the
+        reverse, and a served copy's temporary name does not say which
+        shard it holds."""
+        if self.in_order:
+            return self._shard_sizes[self._shard]
+        spans, _ = self._shard_meta()
+        return len(spans)
+
+    def _shard_meta(self, shard=None):
+        """The served file's size metadata, read once a visit (from
+        ``shard`` where the caller has it open): re-reading the full
+        ``elements_per_sample``/``events_per_element`` arrays on every
+        batch was a fixed ~ms-scale cost per __next__.  Keyed by the file
+        served, not by the stream's shard index: a non-blocking cache
+        serves files out of order, and the JAX package's cache by shard
+        index then reads one file's events with another's sizes."""
         name = self.current_file.name
         if self._meta is None or self._meta[0] != name:
+            if shard is None:
+                with store.open_file(name, 'r') as f:
+                    return self._shard_meta(f)
             spans = np.asarray(shard['elements_per_sample'])
             sizes = (np.asarray(shard['events']['events_per_element'])
                      if self.is_raw
@@ -314,7 +339,7 @@ class PreprocessedDataloader:
         pieces = []
         wanted = self.batch_size
         while wanted > 0:
-            available = self._shard_sizes[self._shard] - self.sample_index
+            available = self._visit_size() - self.sample_index
             take = min(wanted, available)
             if take > 0:
                 stop = self.sample_index + take

@@ -1,7 +1,9 @@
 """One rank of the port's sharded steps, for tests/test_torch_parallel.py
-and tests/test_torch_mesh_window.py.
+and tests/test_torch_mesh_window.py; or ``train.main()`` over a slow
+file cache, for tests/test_torch_cache_stream.py.
 
     python tests/torch_mesh_worker.py WORKDIR RANK WORLD PORT
+    python tests/torch_mesh_worker.py main DELAY REPORTS TRAIN_ARGUMENTS...
 
 Joins a gloo group of WORLD CPU ranks, reads ``WORKDIR/job.pt`` (the
 weights, the batches and the cases the test wrote) and, for each case of
@@ -13,7 +15,18 @@ windows and one batch at a time (``loop``), or a loop whose ranks stage
 different windows (``disagree``); writes ``WORKDIR/<case>.<rank>.pt``
 (losses, parameters, optimizer state, logged scalars).  Imports nothing
 of JAX.
+
+``main``: every copy into ``--cache-dir`` takes DELAY seconds more, as
+from slow storage, in this process and in the ranks that a ``--mesh``
+run spawns (they run this file again, as ``__mp_main__``, with its
+arguments), so that a non-blocking cache serves files out of order.
+Each rank's reader is held to the files its cache served
+(``tests/served_stream.py``), and writes ``VISIT <copy> <source>`` for
+every file served and ``BATCH <events>`` for every batch read to
+``REPORTS/rank<rank>.txt``; the launcher prints ``RESULT`` and
+``main()``'s records as JSON.
 """
+import json
 import sys
 from pathlib import Path
 
@@ -172,6 +185,28 @@ def run_loop(job, case, groups, prepare):
     return out
 
 
+def check_the_cache(delay, reports):
+    """Slow the cache's copies and check every batch (module docstring)."""
+    from dvs_of_training_framework_tpu_torch.data.preprocessed import \
+        PreprocessedDataloader as Reader
+    from tests import served_stream
+    served_stream.install(setattr, served_stream.Copies(delay=delay))
+    checked = Reader.__next__
+
+    def reported(self):
+        batch = checked(self)
+        new = slice(getattr(self, 'reported', 0), None)
+        lines = [f'VISIT {copy.name} {source.name}\n' for copy, source in
+                 zip(self.iterator.served[new], self.stream.visits[new])]
+        self.reported = len(self.stream.visits)
+        lines.append(f'BATCH {batch["events"]["x"].size}\n')
+        with open(Path(reports) / f'rank{self.process_index}.txt', 'a') as f:
+            f.writelines(lines)
+        return batch
+
+    Reader.__next__ = reported
+
+
 def main(workdir, rank, world, port):
     torch.set_num_threads(1)
     device = initialize(f'127.0.0.1:{port}', world, rank, 'cpu')
@@ -186,6 +221,13 @@ def main(workdir, rank, world, port):
     dist.destroy_process_group()
 
 
+if sys.argv[1:2] == ['main'] and __name__ in ('__main__', '__mp_main__'):
+    check_the_cache(float(sys.argv[2]), sys.argv[3])
+
 if __name__ == '__main__':
-    main(Path(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
-         int(sys.argv[4]))
+    if sys.argv[1] == 'main':
+        from dvs_of_training_framework_tpu_torch import train
+        print('RESULT', json.dumps(train.main(sys.argv[4:])), flush=True)
+    else:
+        main(Path(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+             int(sys.argv[4]))
