@@ -1,0 +1,7 @@
+"""k2 fwd: least time (bytes or operations at the published
+peaks, harness/peaks.py) over profiler device time, traced steps, in %."""
+from harness.readers import roofline
+
+
+def read(rec):
+    return roofline(rec, 'k2_fwd')
