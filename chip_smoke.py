@@ -148,7 +148,8 @@ Phases:
     parameters after the step rtol 2e-3, atol 2e-5), the recipe by phase
     6's rule (loss 1e-3, each gradient 5e-2 of its leaf or within 4x the
     bf16-vs-fp32 gap); the two ranks' parameters equal bit for bit;
-    each rank's ms a step, the all-reduce's host time and the bytes
+    each rank's ms a step, the all-reduce's wall time on the stream
+    (CUDA events around it: gloo reduces through the host) and the bytes
     reduced a step on each axis;
 24. ``train.main(['--mesh', 'data:2', ...])`` over phase 14's shards: 8
     production-recipe steps on two spawned ranks sharing the card,
@@ -2385,8 +2386,7 @@ def sharded_step_worker(rank, out, port):
         MeshGroups, initialize, parse_mesh)
     from dvs_of_training_framework_tpu_torch.training import \
         create_train_state
-    from dvs_of_training_framework_tpu_torch.utils.timer import \
-        SynchronizedWallClockTimer
+    from dvs_of_training_framework_tpu_torch.utils.timer import Timers
     out = Path(out)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2397,7 +2397,7 @@ def sharded_step_worker(rank, out, port):
     for config in CONFIGS:
         for spec in MESHES:
             groups = MeshGroups(parse_mesh(spec), device)
-            timers = SynchronizedWallClockTimer(device)
+            timers = Timers(device)
             model, optimizer, step = bench_step(config, device, groups,
                                                 timers)
             pieces = rank_batches(groups, collated, capacity)
@@ -2411,19 +2411,21 @@ def sharded_step_worker(rank, out, port):
             for i in range(WARMUP):
                 step(state, pieces[(i + 1) % len(pieces)].to(device))
             torch.cuda.synchronize(device)
-            timers('all_reduce').reset()
+            timers.resolve()
+            timers.device_spans.clear()
             t0 = time.perf_counter()
             for i in range(STEPS):
                 step(state, pieces[i % len(pieces)].to(device))
             torch.cuda.synchronize(device)
+            timers.resolve()
             n_params = sum(p.numel() for p in model.parameters())
             n_quant = sum(p.numel() for n, p in model.named_parameters()
                           if n.startswith('quantization_layer.'))
             grid = pieces[0].size * 9 * pieces[0].images.shape[-1] ** 2
             timing[f'{config} {spec}'] = {
                 'step_ms': (time.perf_counter() - t0) / STEPS * 1e3,
-                'all_reduce_ms': timers('all_reduce').elapsed() / STEPS
-                * 1e3,
+                'all_reduce_ms': sum(s.ms for s in timers.device_spans
+                                     if s.name == 'all_reduce') / STEPS,
                 # one flat fp32 buffer on the data axis (gradients, loss,
                 # 12 terms); the partial grid and the quantization
                 # gradients on the event axis
@@ -2632,7 +2634,8 @@ def mesh_phases(out, collated, capacity, device, card):
         print(f'[23] {key}: {t["step_ms"]:.3f} and {t1["step_ms"]:.3f} ms '
               f'a step (ranks 0, 1; {STEPS} steps after {WARMUP}), the '
               f'all-reduce {t["all_reduce_ms"]:.3f} and '
-              f'{t1["all_reduce_ms"]:.3f} ms of host time a step ('
+              f'{t1["all_reduce_ms"]:.3f} ms a step on the stream (CUDA '
+              f'events around it; gloo reduces through the host) ('
               f'{100 * t["all_reduce_ms"] / t["step_ms"]:.1f}%), '
               f'{t["data_bytes"] / 1e6:.2f} MB reduced on the data axis and '
               f'{t["event_bytes"] / 1e6:.2f} MB on the event axis a step; '

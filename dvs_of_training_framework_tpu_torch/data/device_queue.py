@@ -16,7 +16,9 @@ calls.  A graph replay returns at once, so the window that the caller
 asks for next is read, padded, stacked and uploaded while the card runs
 the current one.  ``depth`` is the number of staged windows the
 generator holds when it hands one out: it reads and stages windows until
-``depth`` are staged, then yields the oldest (at least 1).
+``depth`` are staged, then yields the oldest (at least 1).  Given the
+loop's ``timers`` (``utils/timer.py``), a window's stacking is a
+``stack`` region and its copy to the device an ``upload`` region.
 """
 import collections
 import dataclasses
@@ -24,6 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.timer import FakeTimer
 from .prefetch import alone, prepare_agreed
 from .schema import Batch, EventBuffer
 
@@ -126,7 +129,7 @@ def stack_batches(batches, pin: bool = False) -> Window:
 
 
 def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
-                     device=None, agree=None):
+                     device=None, agree=None, timers=None):
     """Yield ``(host_batches, device_window, n_valid, skipped)`` tuples.
 
     Args:
@@ -144,6 +147,9 @@ def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
             before the window is staged, and a batch that overflowed on
             any rank is dropped on every rank (a further round, as
             small, refills the dropped slots).
+        timers: ``utils/timer.py``'s interface (``FakeTimer`` if None):
+            ``prepare_agreed``'s ``read`` regions, a ``stack`` and an
+            ``upload`` region a window.
 
     Each yielded tuple:
         host_batches: the K (or fewer, for the final window) collated
@@ -160,6 +166,7 @@ def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
     """
     device = torch.device('cpu' if device is None else device)
     pin = device.type == 'cuda'
+    timers = FakeTimer() if timers is None else timers
     batch_iter = iter(batch_iter)
 
     def staged():
@@ -169,9 +176,13 @@ def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
             hosts, prepared = zip(*pending)
             n_valid = len(prepared)
             padded = list(prepared) + [prepared[-1]] * (window - n_valid)
-            item = (list(hosts),
-                    stack_batches(padded, pin=pin).to(device),
-                    n_valid, list(skipped))
+            timers('stack').start()
+            host_window = stack_batches(padded, pin=pin)
+            timers('stack').stop()
+            timers('upload').start()
+            device_window = host_window.to(device)
+            timers('upload').stop()
+            item = (list(hosts), device_window, n_valid, list(skipped))
             pending.clear()
             skipped.clear()
             return item
@@ -181,7 +192,7 @@ def prefetch_windows(batch_iter, prepare_fn, window: int, depth: int = 2,
             # the window's free slots, read and prepared, then agreed
             items, ended = prepare_agreed(batch_iter, prepare_fn,
                                           window - len(pending),
-                                          agree or alone)
+                                          agree or alone, timers)
             for host_batch, prepared in items:
                 if prepared is None:
                     skipped.append(host_batch)

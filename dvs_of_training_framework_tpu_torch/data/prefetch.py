@@ -17,7 +17,12 @@ many small torch calls.  On an H100 80GB HBM3 (700 W) the recipe step
 took 48.4 ms through the loop with a padding thread two batches ahead
 and 40.1 ms with padding on the loop's thread, against 39.7 ms for the
 bare step with the same pinned upload (medians of 40 steps each).
+
+Given the loop's ``timers`` (``utils/timer.py``), each read from the
+loader is a ``read`` region and each batch's pinning and copy an
+``upload`` region.
 """
+from ..utils.timer import FakeTimer
 
 
 _END = object()
@@ -28,7 +33,7 @@ def alone(drops, ended):
     return drops, ended
 
 
-def prepare_agreed(batch_iter, prepare_fn, n, agree=alone):
+def prepare_agreed(batch_iter, prepare_fn, n, agree=alone, timers=None):
     """Read and prepare the next ``n`` host batches, then drop every one
     that some rank could not prepare.
 
@@ -40,14 +45,19 @@ def prepare_agreed(batch_iter, prepare_fn, n, agree=alone):
         agree: ``(drops, ended) -> (drops, ended)``, each rank's marks
             and whether its stream ended, combined over the ranks
             (``parallel.agree_on_drops``: one all-reduce).
+        timers: ``utils/timer.py``'s interface (``FakeTimer`` if None):
+            each ``next()`` of ``batch_iter`` is a ``read`` region.
 
     Returns:
         ``([(host_batch, prepared or None), ...], ended)``: a dropped
         batch comes with None; after ``ended`` no rank reads on.
     """
+    timers = FakeTimer() if timers is None else timers
     items, ended = [], False
     for _ in range(n):
+        timers('read').start()
         host_batch = next(batch_iter, _END)
+        timers('read').stop()
         if host_batch is _END:
             ended = True
             break
@@ -61,7 +71,8 @@ def prepare_agreed(batch_iter, prepare_fn, n, agree=alone):
             for (host_batch, prepared), drop in zip(items, drops)], ended
 
 
-def prefetch_to_device(batch_iter, prepare_fn, device, agree=None):
+def prefetch_to_device(batch_iter, prepare_fn, device, agree=None,
+                       timers=None):
     """Yield ``(host_batch, device_batch)`` for each host batch.
 
     Args:
@@ -73,25 +84,31 @@ def prefetch_to_device(batch_iter, prepare_fn, device, agree=None):
         agree: on a mesh, ``prepare_agreed``'s ``agree``: a batch is
             then dropped on every rank when any rank's piece of it
             overflowed, one all-reduce a batch.
+        timers: ``utils/timer.py``'s interface (``FakeTimer`` if None):
+            ``read`` regions, and an ``upload`` region a batch.
 
     Abandoning the generator (break, exception, garbage collection)
     closes ``batch_iter``.
     """
     pin = device.type == 'cuda'
+    timers = FakeTimer() if timers is None else timers
     batch_iter = iter(batch_iter)
     try:
         while True:
             items, ended = prepare_agreed(batch_iter, prepare_fn, 1,
-                                          agree or alone)
+                                          agree or alone, timers)
             if ended:
                 return
             (host_batch, batch), = items
             if batch is None:
                 yield host_batch, None
                 continue
+            timers('upload').start()
             if pin:
                 batch = batch.pin_memory()
-            yield host_batch, batch.to(device, non_blocking=True)
+            batch = batch.to(device, non_blocking=True)
+            timers('upload').stop()
+            yield host_batch, batch
     finally:
         close = getattr(batch_iter, 'close', None)
         if close is not None:

@@ -376,8 +376,11 @@ def make_sharded_grad_fn(model, evaluator, weights, groups: MeshGroups,
     group's partial grids, and the quantization layer's gradients are
     summed over the event group before the data mean.  Unused parameters
     get zero gradients (``materialize_grads``), as in the single-device
-    step.  ``timers('all_reduce')`` spans each collective; it synchronises
-    the device, so a body captured in a CUDA graph takes ``FakeTimer``.
+    step.  ``timers('all_reduce')`` spans each collective without
+    synchronising: with the port's ``Timers`` on a card it is a device
+    region (CUDA events on the current stream around the collective), on
+    the CPU (gloo) a host span.  A body captured in a CUDA graph takes
+    ``FakeTimer``: the graph replays no host code.
     """
     if event_axis and not is_raw:
         raise ValueError('event-axis sharding requires raw events')

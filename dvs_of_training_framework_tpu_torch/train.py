@@ -117,7 +117,7 @@ from .utils.options import (add_preprocessed_dataset_arguments,
                             validate_train_args)
 from .utils.profiling import Profiler
 from .utils.tb import NullSummaryWriter, SummaryWriter
-from .utils.timer import FakeTimer, SynchronizedWallClockTimer
+from .utils.timer import FakeTimer, Timers
 
 # TPU and tunnel workarounds the port leaves out (ROADMAP "Not to port")
 TPU_ONLY = ('wire_timestamps', 'wire_events', 'wire_data', 'split_decoder',
@@ -238,8 +238,7 @@ def run(args, train_loader_factory, val_loader_factory, logger,
             validation loader.
         logger: SummaryWriter; closed at the end.
         timers: ``utils/timer.py``'s interface for ``train``; by default
-            ``SynchronizedWallClockTimer`` under ``--timers``, else
-            ``FakeTimer``.
+            the tracer ``Timers`` under ``--timers``, else ``FakeTimer``.
         groups: this rank's ``parallel.MeshGroups`` on a mesh, None for
             one device.
 
@@ -250,7 +249,7 @@ def run(args, train_loader_factory, val_loader_factory, logger,
         else groups.device
     is_main = groups is None or groups.is_main
     if timers is None:
-        timers = SynchronizedWallClockTimer(device) if args.timers \
+        timers = Timers(device, batch_size=args.mbs) if args.timers \
             else FakeTimer()
     # fp32 convolutions and matmuls in full precision, as the JAX
     # package's 'highest'; and only cuDNN's deterministic algorithms, so a

@@ -38,8 +38,7 @@ import torch
 
 from ..data.prefetch import prefetch_to_device
 from ..data.schema import SKIPPED_EVENTS, pad_batch
-from ..utils.timer import (FakeTimer, SynchronizedWallClockTimer,
-                           ThroughputTimer)
+from ..utils.timer import FakeTimer
 from .state import step_values
 
 
@@ -128,9 +127,12 @@ def train(train_step,
         event_capacity: fixed event-buffer size; with
             ``max_events_per_batch`` it bounds the batches taken, larger
             ones are skipped (the reference's oversized-batch breaker).
-        timers: ``utils/timer.py``'s interface; ``FakeTimer`` if None.
-            A ``SynchronizedWallClockTimer`` also reports samples/s
-            (``ThroughputTimer``).
+        timers: ``utils/timer.py``'s interface, of which the loop calls
+            ``timers(name).start()``, ``.stop()`` and ``timers.log()``;
+            ``FakeTimer`` if None.  Inside the loop's regions
+            (``batch_construction``, ``train_step``, ``logging``, the
+            hooks') it opens ``read``, ``pad``, ``stack``, ``upload`` and
+            ``fetch``.
         hooks: dict of periodic hooks called with (step, samples_passed).
         on_state_update: optional callback receiving the latest state.
         metric_flush_steps: optimizer steps between metric fetches.
@@ -174,9 +176,6 @@ def train(train_step,
     """
     if timers is None:
         timers = FakeTimer()
-    throughput = None
-    if isinstance(timers, SynchronizedWallClockTimer):
-        throughput = ThroughputTimer(batch_size=None, device=device)
     samples_passed = init_samples_passed
     pending_micro = []       # device (loss, terms) since the last boundary
     pending_boundaries = []  # deferred metric records (see flush_metrics)
@@ -190,10 +189,14 @@ def train(train_step,
         num_events = batch_num_events(host_batch, is_raw)
         if num_events > capacity:
             raise OverflowError(f'{num_events} events > capacity {capacity}')
-        if prepare_batch is not None:
-            return prepare_batch(host_batch, capacity)
-        return pad_batch(host_batch, capacity if is_raw else None,
-                         sequence_length=sequence_length)
+        timers('pad').start()
+        try:
+            if prepare_batch is not None:
+                return prepare_batch(host_batch, capacity)
+            return pad_batch(host_batch, capacity if is_raw else None,
+                             sequence_length=sequence_length)
+        finally:
+            timers('pad').stop()
 
     def emit(b_step, b_samples, micro):
         loss_sum = 0.0
@@ -230,7 +233,9 @@ def train(train_step,
                 rows.append(_window_rows(*record[3:]))
             else:
                 rows += [step_values(*r) for r in record[3]]
+        timers('fetch').start()
         fetched = iter(_fetch(rows))
+        timers('fetch').stop()
         for record in pending_boundaries:
             if record[0] == 'fused':
                 _, first_step, samples_list = record[:3]
@@ -265,14 +270,9 @@ def train(train_step,
             boundary_count
         global_step += 1
         samples_passed += host_batch['size'] * samples_scale
-        if throughput is not None:
-            throughput.batch_size = host_batch['size']
-            throughput.start()
         timers('train_step').start()
         state, (loss, terms) = train_step(state, device_batch)
         timers('train_step').stop()
-        if throughput is not None:
-            throughput.stop()
 
         is_step_boundary = global_step % accumulation_steps == 0
 
@@ -317,14 +317,9 @@ def train(train_step,
         nonlocal state, global_step, samples_passed, boundary_count
         assert not pending_micro, \
             'fused window entered with a partial accumulation group'
-        if throughput is not None:
-            throughput.batch_size = sum(b['size'] for b in host_batches)
-            throughput.start()
         timers('train_step').start()
         state, (loss_k, terms_k) = train_step_fused(state, device_window)
         timers('train_step').stop()
-        if throughput is not None:
-            throughput.stop()
         base_step = global_step // accumulation_steps
         samples_list = []   # samples_passed at each optimizer boundary
         for i, host_batch in enumerate(host_batches):
@@ -363,7 +358,7 @@ def train(train_step,
                 'queue')
         from ..data.device_queue import prefetch_windows
         stream = prefetch_windows(iter(loader), make_batch, window,
-                                  device=device, agree=agree)
+                                  device=device, agree=agree, timers=timers)
         timers('batch_construction').start()
         done = False
         for host_batches, device_window, n_valid, skipped in stream:
@@ -399,7 +394,7 @@ def train(train_step,
         return state, samples_passed
 
     stream = prefetch_to_device(iter(loader), make_batch, device,
-                                agree=agree)
+                                agree=agree, timers=timers)
     timers('batch_construction').start()
     for batch, device_batch in stream:
         if global_step == num_steps * accumulation_steps:

@@ -296,7 +296,12 @@ _TRAIN = [
           help='steps between checkpoints')),
     (('--timers',),
      dict(dest='timers', action='store_true',
-          help='print region timers')),
+          help='print a line a window (a step with '
+               '--device-queue-window 0) on rank 0: the host ms of the '
+               'loop\'s regions, the device ms of the upload, train step '
+               'and all-reduce, the count of each region\'s spans and '
+               'SamplesPerSec= (-mbs samples for each batch padded since '
+               'the last line that showed it, over the time since then)')),
     (('--do_not_continue',),
      dict(dest='do_not_continue', action='store_true',
           help='start fresh instead of resuming from checkpoints')),
