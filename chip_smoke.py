@@ -2262,7 +2262,7 @@ def dense_phases(out, device, card, counters, raw_main):
                         ('dummy_dense', ['--flownet_path', 'DummyFlowNet'])):
         path = out / name
         # one batch at a time: the host makes each image, so a window of
-        # 16 staged two ahead would make 32 batches' for 4 steps
+        # 16 would make 16 batches' for 4 steps
         args = choose_data_path(cli.parse_args(
             ['-m', str(path), '-d', device.type, '-bs', '8', '-mbs', '8',
              '-ne', '4', '--ev_images', '--skip-validation', '--height',

@@ -14,9 +14,16 @@ There is no background thread, as in ``data/prefetch.py``: a second
 Python thread contends for the GIL with the step's many small torch
 calls.  A graph replay returns at once, so the window that the caller
 asks for next is read, padded, stacked and uploaded while the card runs
-the current one.  ``depth`` is the number of staged windows the
+the current one, if the caller asks before it waits on the card.  The
+training loop (``training/train.py`` ``train``) does, in this order:
+enqueue window i's work, stage window i+1 (this generator's next item),
+flush the metrics (which waits for window i and the upload of i+1),
+run the hooks.  ``depth`` is the number of staged windows the
 generator holds when it hands one out: it reads and stages windows until
-``depth`` are staged, then yields the oldest (at least 1).  Given the
+``depth`` are staged, then yields the oldest (at least 1).  ``train``
+holds the next window itself and asks for ``depth=1``, so at most two
+windows are on the device at once; ``validate_windowed``, which asks for
+each window only after enqueueing the last, keeps the default 2.  Given the
 loop's ``timers`` (``utils/timer.py``), a window's stacking is a
 ``stack`` region and its copy to the device an ``upload`` region.
 """

@@ -26,11 +26,21 @@ as staged windows of K (``data/device_queue.py``) and runs a window that
 covers whole optimizer steps, with no hook due inside it, as one call of
 ``train_step_fused`` (``state.make_fused_window_step``: one CUDA graph
 replay on a card); any other window, a partial one at the end or one a
-hook cuts, runs ``train_step`` slot by slot.  A rank of a mesh stages
-windows of its own pieces and steps them with the sharded steps
-(``parallel/mesh.py``).  ``validate_windowed`` does the same for
-validation on one device (``--validation-window``).  The logged values
-equal the per-batch loop's.
+hook cuts, runs ``train_step`` slot by slot.  The host stages the next
+window while the card runs the current one: a window's work is enqueued
+(the fused call, or its last slot's step), then the next window is
+read, padded, stacked and uploaded, then the metrics are flushed, which
+blocks on the card, then the hooks run.  So the loop itself holds the
+next window while a window runs, and reads the stream with ``depth=1``:
+at most two windows are on the device at once, and the loader is read
+at most one window beyond the window in flight.  A window's first call
+of ``train_step_fused`` captures its graph before it returns, so nothing
+is staged during a capture.  A rank of a mesh stages windows of its own
+pieces and steps them with the sharded steps (``parallel/mesh.py``); its
+ranks stage, and agree on drops, at the same point of every window.
+``validate_windowed`` does the same for validation on one device
+(``--validation-window``).  The logged values equal the per-batch
+loop's.
 """
 import itertools
 
@@ -132,7 +142,9 @@ def train(train_step,
             ``FakeTimer`` if None.  Inside the loop's regions
             (``batch_construction``, ``train_step``, ``logging``, the
             hooks') it opens ``read``, ``pad``, ``stack``, ``upload`` and
-            ``fetch``.
+            ``fetch``; with ``window``, ``ahead`` inside each
+            ``batch_construction`` that stages a window behind one in
+            flight (all but the first).
         hooks: dict of periodic hooks called with (step, samples_passed).
         on_state_update: optional callback receiving the latest state.
         metric_flush_steps: optimizer steps between metric fetches.
@@ -265,7 +277,9 @@ def train(train_step,
         logger.add_scalar('General/skipped batches', num_skipped,
                           samples_passed)
 
-    def run_step(host_batch, device_batch):
+    def run_step(host_batch, device_batch, stage_next=None):
+        """One batch's step; ``stage_next``, where given, is called once
+        the step is enqueued, before anything waits on the card."""
         nonlocal state, global_step, samples_passed, pending_micro, \
             boundary_count
         global_step += 1
@@ -273,6 +287,8 @@ def train(train_step,
         timers('train_step').start()
         state, (loss, terms) = train_step(state, device_batch)
         timers('train_step').stop()
+        if stage_next is not None:
+            stage_next()
 
         is_step_boundary = global_step % accumulation_steps == 0
 
@@ -312,14 +328,16 @@ def train(train_step,
                 return True
         return False
 
-    def run_fused(host_batches, device_window):
-        """A whole window in one call of train_step_fused."""
+    def run_fused(host_batches, device_window, stage_next):
+        """A whole window in one call of train_step_fused; then
+        ``stage_next()`` while the card runs it."""
         nonlocal state, global_step, samples_passed, boundary_count
         assert not pending_micro, \
             'fused window entered with a partial accumulation group'
         timers('train_step').start()
         state, (loss_k, terms_k) = train_step_fused(state, device_window)
         timers('train_step').stop()
+        stage_next()
         base_step = global_step // accumulation_steps
         samples_list = []   # samples_passed at each optimizer boundary
         for i, host_batch in enumerate(host_batches):
@@ -357,12 +375,34 @@ def train(train_step,
                 'that divides the checkpoint cadence or disable the device '
                 'queue')
         from ..data.device_queue import prefetch_windows
-        stream = prefetch_windows(iter(loader), make_batch, window,
+
+        # depth 1: the loop holds the next window itself (``stage``)
+        stream = prefetch_windows(iter(loader), make_batch, window, depth=1,
                                   device=device, agree=agree, timers=timers)
         timers('batch_construction').start()
-        done = False
-        for host_batches, device_window, n_valid, skipped in stream:
+        staged = next(stream, None)     # the first, nothing in flight
+        timers('batch_construction').stop()
+
+        def stage():
+            """The next staged window into ``staged`` (None at the
+            stream's end), behind the window in flight.  The stream's
+            error is kept, and raised where the loop takes the window:
+            after the window in flight is flushed and its hooks ran."""
+            nonlocal staged
+            timers('batch_construction').start()
+            timers('ahead').start()
+            try:
+                staged = next(stream, None)
+            except Exception as error:
+                staged = error
+            timers('ahead').stop()
             timers('batch_construction').stop()
+
+        done = False
+        while staged is not None:
+            if isinstance(staged, Exception):
+                raise staged
+            host_batches, device_window, n_valid, skipped = staged
             if window_check is not None:
                 window_check(n_valid, len(skipped))
             for host_batch in skipped:
@@ -377,18 +417,18 @@ def train(train_step,
                     and global_step % accumulation_steps == 0
                     and not hook_inside(first_opt,
                                         window // accumulation_steps - 1)):
-                run_fused(host_batches, device_window)
+                run_fused(host_batches, device_window, stage)
             else:
                 for i in range(n_valid):
                     if global_step == num_steps * accumulation_steps:
                         done = True
                         break
-                    run_step(host_batches[i], device_window)
+                    # a window holds at least one batch: its last slot
+                    # stages the next window
+                    run_step(host_batches[i], device_window,
+                             stage if i == n_valid - 1 else None)
             if done:
                 break
-            timers('batch_construction').start()
-        else:
-            timers('batch_construction').stop()
         stream.close()
         flush_metrics()
         return state, samples_passed

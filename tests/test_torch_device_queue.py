@@ -19,6 +19,12 @@ The setup of tests/test_torch_train_loop.py: EVFlowNet at depth 4, base 8,
 - The port's windowed runs against its own ``window=0`` run, bit for bit
   on the CPU: raw, dense (``--ev_images`` batches) and dynamic sample
   lengths, fused and slot by slot, with accumulation.
+- The windowed loop's order, with stand-in steps and a recording
+  ``timers``: each window after the first is staged (``ahead``) after
+  the window before it is enqueued and before that window's fetch; the
+  loader is read at most one window beyond the window in flight; a hook
+  that cuts a window still follows the flush; the stream's error behind
+  a window is raised after that window's flush and hooks.
 - The alignment check refuses a state resumed mid-window; an aligned
   resume equals the uninterrupted windowed run bit for bit.
 - ``validate_windowed`` against the JAX package's (rtol 1e-4, atol 1e-7)
@@ -412,6 +418,147 @@ def test_validate_windowed_matches_jax_and_validate():
     np.testing.assert_allclose([v for _, v, _ in logs['windowed'].scalars],
                                [v for _, v, _ in jax_log.scalars],
                                rtol=1e-4, atol=1e-7)
+
+
+class Trail:
+    """One ordered record of the loop's regions (``timers``' interface),
+    the loader's reads, the steps' enqueues, the logged losses and the
+    hook's calls."""
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, name):
+        trail = self
+
+        class Region:
+            def start(self):
+                trail.events.append(('open', name))
+
+            def stop(self):
+                trail.events.append(('close', name))
+
+        return Region()
+
+    def log(self, names, **kwargs):
+        pass
+
+    def add_scalar(self, tag, value, step):
+        if tag == 'General/Train loss':
+            self.events.append(('loss', step))
+
+
+# (batches in the loader, optimizer steps): the stream ends with a partial
+# window of 2, or the steps end 2 batches into a staged window
+ORDER_CASES = {'stream ends': (22, 22), 'steps end': (32, 22)}
+
+
+@pytest.mark.parametrize('case', list(ORDER_CASES))
+def test_windowed_loop_stages_the_next_window_behind_the_current(case):
+    """Stand-in steps through the windowed loop, windows of 4 and a hook
+    every 6 steps (windows 1 and 4 run slot by slot): every window after
+    the first is staged after the window before it is enqueued and before
+    that window's fetch, inside ``ahead``; the loader is read at most one
+    window beyond the window in flight; a hook runs after the flush of
+    every step up to its own."""
+    n_batches, num_steps = ORDER_CASES[case]
+    K, trail = 4, Trail()
+    events = trail.events
+
+    def loader():
+        for s in range(n_batches):
+            events.append(('read', s))
+            yield card_batch(s % 4)
+
+    def values(*lead):
+        return torch.ones(lead), tuple([torch.ones(lead)] * 4
+                                       for _ in range(3))
+
+    def step(state, device_window):
+        events.append(('enqueue', 1))
+        return state, values()
+
+    def fused(state, device_window):
+        events.append(('enqueue', device_window.window))
+        loss, terms = values(K)
+        return state, (loss, tuple(torch.stack(t, 1) for t in terms))
+
+    hook = port_train.make_hook_periodic(
+        lambda s, n: events.append(('hook', s)), 6)
+    port_train.train(step, create_train_state(), loader(), num_steps,
+                     trail, ['a', 'b', 'c', 'd'], CPU, event_capacity=1024,
+                     timers=trail, hooks={'record': hook},
+                     metric_flush_steps=K, window=K, train_step_fused=fused)
+
+    enqueued, logged, depth, uploads = 0, 0, [], []
+    ends, fetches, hooks = {}, [], []     # at an event's index
+    for i, event in enumerate(events):
+        kind, what = event
+        if kind == 'read':      # within one window of the one in flight
+            assert what // K <= -(-enqueued // K), (what, enqueued)
+        elif kind == 'enqueue':
+            enqueued += what
+            if enqueued % K == 0 or enqueued == num_steps:
+                ends[-(-enqueued // K) - 1] = i    # a window's last enqueue
+        elif kind == 'loss':
+            logged += 1
+        elif kind == 'hook':
+            assert logged == what    # flushed before the hook
+            hooks.append(what)
+        elif kind == 'open':
+            depth.append(what)
+            if what == 'fetch':
+                fetches.append(i)
+        else:
+            assert depth.pop() == what      # regions nest
+            if what == 'upload':
+                uploads.append((i, 'ahead' in depth))
+    assert hooks == [6, 12, 18] and logged == num_steps
+    assert [s for e, s in events if e == 'enqueue'] == \
+        [4, 1, 1, 1, 1, 4, 4, 1, 1, 1, 1, 1, 1]
+    # six windows staged, the sixth partial or cut by the steps' end; the
+    # loader read no further
+    staged = 6
+    assert len(uploads) == staged
+    assert [s for e, s in events if e == 'read'] == \
+        list(range(min(n_batches, staged * K)))
+    assert [ahead for _, ahead in uploads] == [False] + [True] * (staged - 1)
+    for w, (at, _) in enumerate(uploads[1:]):
+        # window w+1 uploaded after window w's last enqueue, before the
+        # first fetch after it
+        assert ends[w] < at < min(f for f in fetches if f > ends[w])
+    aheads = events.count(('open', 'ahead'))
+    assert aheads == staged - 1 + (case == 'stream ends')
+
+
+def test_a_stream_error_behind_a_window_follows_its_flush_and_hooks():
+    """The loader fails while the second window is staged behind the
+    first: the error is raised once the first window's losses are logged
+    and its hook ran."""
+    trail = Trail()
+
+    def loader():
+        for s in range(6):
+            yield card_batch(s)
+        raise OSError('a shard could not be read')
+
+    def fused(state, device_window):
+        loss = torch.ones(device_window.window)
+        return state, (loss, tuple(torch.ones(len(loss), 4)
+                                   for _ in range(3)))
+
+    hook = port_train.make_hook_periodic(
+        lambda s, n: trail.events.append(('hook', s)), 4)
+    with pytest.raises(OSError, match='could not be read'):
+        port_train.train(None, create_train_state(), loader(), 8, trail,
+                         ['a', 'b', 'c', 'd'], CPU, event_capacity=1024,
+                         timers=trail, hooks={'record': hook},
+                         metric_flush_steps=4, window=4,
+                         train_step_fused=fused)
+    # four steps of two samples, then the hook's region, the last event
+    assert [e for e in trail.events if e[0] in ('loss', 'hook')] == \
+        [('loss', 2), ('loss', 4), ('loss', 6), ('loss', 8), ('hook', 4)]
+    assert trail.events[-1] == ('close', 'record')
 
 
 def card_batch(seed, B=2, H=32, W=32):

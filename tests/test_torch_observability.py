@@ -64,15 +64,16 @@ def test_main_prints_timer_lines_and_writes_a_trace(tmp_path, monkeypatch,
     # the JAX loop's regions: batch construction, step, logging, hooks
     assert names[0] == ['batch_construction', 'train_step', 'logging',
                         'serialization', 'validation']
-    # each step's span counts (the CPU has no device regions): two windows
+    # each step's span counts (the CPU has no device regions): one window
     # of 16 (the default) staged before the first step, then each step
-    # one train step and one blocking fetch before its hooks
+    # one train step and one blocking fetch before its hooks; the steps
+    # end inside that window, so no window is staged behind it
     counts = [dict(re.findall(r'([a-z_]+)=(\d+)', line.split(' | spans ')[1]))
               for line in lines]
     assert [tuple(c.get(k) for k in ('read', 'pad', 'stack', 'upload',
-                                     'train_step', 'fetch'))
-            for c in counts] == [('32', '32', '2', '2', '1', '1'),
-                                 (None, None, None, None, '1', '1')]
+                                     'train_step', 'fetch', 'ahead'))
+            for c in counts] == [('16', '16', '1', '1', '1', '1', None),
+                                 (None, None, None, None, '1', '1', None)]
     assert 'device ms' not in lines[0]
     # samples/s only on a line after a line that padded batches
     assert not any('SamplesPerSec' in line for line in lines)

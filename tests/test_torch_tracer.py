@@ -4,9 +4,11 @@
   region synchronises the device.
 - ``FakeTimer`` hands out one shared region.
 - The windowed loop through ``prefetch_windows``: each window's line
-  counts one ``stack`` and one ``upload`` span, a ``pad`` span a batch
-  and one ``fetch`` span, each inside the loop's ``batch_construction``
-  or ``logging`` region, and the losses equal those with ``FakeTimer``.
+  counts the staging of the window after it (one ``stack`` and one
+  ``upload`` span, a ``pad`` span a batch) inside an ``ahead`` region,
+  closed before the window's one ``fetch`` span opens; each span inside
+  the loop's ``batch_construction`` or ``logging`` region; and the
+  losses equal those with ``FakeTimer``.
 - Device regions take their CUDA events from a reused pool and become
   device spans only once the events completed (stand-in events here;
   the real ones in the ``cuda`` test).
@@ -144,24 +146,36 @@ def test_windowed_loop_spans(capsys):
            if line.startswith('rank=0 time (ms)')]
     counts = [dict((k, int(n)) for k, n in re.findall(
         r'([a-z_]+)=(\d+)', line.split(' | spans ')[1])) for line in out]
-    # two windows staged before the first runs; before the second, the
-    # loader's end is read
+    # the first window is staged before it runs, the second behind the
+    # first's replay (``ahead``); behind the second's, the loader's end is
+    # read; each before its window's fetch
     assert counts == [
         {'read': WINDOW * 2, 'pad': WINDOW * 2, 'stack': 2, 'upload': 2,
-         'batch_construction': 1, 'train_step': 1, 'fetch': 1,
+         'batch_construction': 2, 'train_step': 1, 'ahead': 1, 'fetch': 1,
          'logging': 1},
-        {'read': 1, 'batch_construction': 1, 'train_step': 1, 'fetch': 1,
-         'logging': 1}]
-    spans = [s for line in kept.lines for s in line] \
-        + list(kept.tracer.spans)        # the stream's end, after the last
+        {'read': 1, 'batch_construction': 1, 'train_step': 1, 'ahead': 1,
+         'fetch': 1, 'logging': 1}]
+    assert not kept.tracer.spans     # nothing after the last window's line
+    spans = [s for line in kept.lines for s in line]
     outer = {name: [s for s in spans if s.name == name]
-             for name in ('batch_construction', 'logging')}
+             for name in ('batch_construction', 'ahead', 'logging')}
     assert len(outer['batch_construction']) == 3
     for span in spans:
-        if span.name in STAGING:
+        if span.name in STAGING + ('ahead',):
             assert inside(span, outer['batch_construction'])
         elif span.name == 'fetch':
             assert inside(span, outer['logging'])
+    for line in kept.lines:
+        (fetch,) = [s for s in line if s.name == 'fetch']
+        (ahead,) = [s for s in line if s.name == 'ahead']
+        (replay,) = [s for s in line if s.name == 'train_step']
+        assert replay.end <= ahead.start and ahead.end <= fetch.start
+        behind = [s for s in line if s.name in STAGING
+                  and inside(s, [ahead])]
+        assert behind and all(s.end <= fetch.start for s in behind)
+    # the second window's stack and upload, behind the first's replay
+    assert [s.name for s in kept.lines[0] if s.name in ('stack', 'upload')
+            and inside(s, outer['ahead'])] == ['stack', 'upload']
 
 
 @pytest.fixture
