@@ -7,11 +7,12 @@ against the ``Model``'s accepted parameters, so a plugin declares only
 what it uses.
 
 Name resolution: a path whose directory name is ``EVFlowNet``,
-``RecurrentFlowNet`` or ``DummyFlowNet`` (wherever it points) resolves to
-the port's own module of that name (``models/evflownet.py``,
-``models/recurrent_flownet.py``, ``models/dummy_flownet.py``); the repo's
-root plugin directories of those names hold the JAX plugins and are never
-imported.  Any other directory is imported as a torch plugin: its
+``RecurrentFlowNet``, ``DummyFlowNet`` or ``ERAFT`` (wherever it points)
+resolves to the port's own module of that name (``models/evflownet.py``,
+``models/recurrent_flownet.py``, ``models/dummy_flownet.py``,
+``models/eraft.py``); the repo's root plugin directories of the first
+three names hold the JAX plugins and are never imported (the JAX package
+has no E-RAFT).  Any other directory is imported as a torch plugin: its
 ``net.py`` for the model, its ``__init__.py`` for the inference wrapper,
 its ``test.py`` for the flow rendering.
 
@@ -23,7 +24,10 @@ Plugin contract of the port:
   ``(flows, flow_ts, flow_sample_idx[, features])``, ``flows`` a tuple of
   ``[B, 2, H/2^i, W/2^i]`` tensors for i = 3..0; with ``raw=False``
   ``events`` is a dense float32 ``[B, C, H, W]`` tensor (``--ev_images``,
-  baked shards), which the model casts to its compute type;
+  baked shards), which the model casts to its compute type; a plugin
+  may need a number of elements a sample (E-RAFT reads two event volumes:
+  ``--max-sequence-length 2 --prefix-length 1``), and raises at
+  construction for another;
 - ``Model.quantize(events, timestamps, sample_idx, imsize)`` gives the
   dense float32 representation of a raw batch, as baked by
   ``tools/quantize_preprocessed.py``;
@@ -36,11 +40,18 @@ Plugin contract of the port:
   (reference train_flownet.py:50-54, 78-109); without one the optimizer
   has one group;
 - its parameters of two or more dimensions belong to the port's ``Conv``
-  or ``DenseParams``, ``torch.nn.Conv2d`` or ``torch.nn.Linear``, whose
-  output axes ``output_axes`` knows;
+  or ``DenseParams``, ``torch.nn.Conv2d`` (or a subclass) or
+  ``torch.nn.Linear``, whose output axes ``output_axes`` knows; a
+  normalisation layer's scale and shift are leaves of one dimension,
+  which the optimizer does not centralise;
+- its buffers (batch norm's running statistics) are updated in place,
+  where a captured window's graph updates them too; buffers registered
+  non-persistent stay out of ``state_dict()``, so the parameters alone
+  load strictly, and a checkpoint stores them beside it
+  (``training/hooks.py``);
 - ``OpticalFlow`` (a ``BaseOpticalFlow``) is its inference wrapper;
 - ``vis_flow(flow)`` renders one ``[H, W, 2]`` float32 flow field as a
-  BGR uint8 image (the three plugins: ``utils/visualization.flow2img``
+  BGR uint8 image (the four plugins: ``utils/visualization.flow2img``
   of its two channels), for the visualize CLI's panels.
 """
 import importlib
@@ -57,7 +68,8 @@ from ..utils.options import options2model_kwargs
 # plugin directory name -> the port's module of that plugin
 PORT_PLUGINS = {'EVFlowNet': 'evflownet',
                 'RecurrentFlowNet': 'recurrent_flownet',
-                'DummyFlowNet': 'dummy_flownet'}
+                'DummyFlowNet': 'dummy_flownet',
+                'ERAFT': 'eraft'}
 
 
 def filter_kwargs(func, kwargs):
@@ -111,7 +123,7 @@ def load_plugin(flownet_path):
 
 
 def load_vis_flow(flownet_path):
-    """The plugin's ``vis_flow``: the port module's for the three
+    """The plugin's ``vis_flow``: the port module's for the four
     plugin names, else the one in the directory's ``test.py``."""
     flownet_path = Path(flownet_path)
     module = _port_module(flownet_path) or import_module(

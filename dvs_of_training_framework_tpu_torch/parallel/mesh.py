@@ -19,6 +19,11 @@ groups of ``MeshGroups``:
   the quantization layer's gradients, partial per event slice, are summed
   over the event group (the split VJP of ``mesh.py:261-310``).
 
+Nothing reduces or broadcasts a model's buffers, so the sharded steps
+refuse a model that has any (``refuse_buffers``): batch norm's running
+statistics, E-RAFT's, would drift apart on each rank, and each rank's
+batch statistics would be its shard's, not the full batch's.
+
 A ``--mesh`` spec is "data:D[,event:E]"; rank r sits at the coordinates
 of r in the spec's axis order (``np.unravel_index``, the order of
 ``make_mesh``'s reshape): for "data:D,event:E", data r // E, event r % E.
@@ -33,8 +38,8 @@ import torch.distributed as dist
 from ..data.schema import Batch, EventBuffer, layout_sample_slots, \
     pad_events
 from ..losses import combined_loss
-from ..training.state import (make_fused_update_step, make_loss_fn,
-                              make_update_step, window_slots)
+from ..training.state import (eval_mode, make_fused_update_step,
+                              make_loss_fn, make_update_step, window_slots)
 from ..utils.timer import FakeTimer
 from .distributed import window_runs_as_graph
 
@@ -364,6 +369,19 @@ def _restore_terms(terms, values):
     return tuple([next(it) for _ in group] for group in terms)
 
 
+def refuse_buffers(model):
+    """Raise for a model with buffers: the mesh all-reduces the parameters'
+    gradients alone, so a buffer the forward updates (batch norm's running
+    statistics) would differ from rank to rank, and batch statistics
+    would be each shard's rather than the full batch's."""
+    names = [name for name, _ in model.named_buffers()]
+    if names:
+        raise ValueError(
+            f'{type(model).__module__} holds buffers ({names[0]} and '
+            f'{len(names) - 1} more), which the mesh does not reduce: '
+            'train it on one device')
+
+
 def make_sharded_grad_fn(model, evaluator, weights, groups: MeshGroups,
                          is_raw: bool = True, event_axis: bool = False,
                          timers=None):
@@ -382,6 +400,7 @@ def make_sharded_grad_fn(model, evaluator, weights, groups: MeshGroups,
     the CPU (gloo) a host span.  A body captured in a CUDA graph takes
     ``FakeTimer``: the graph replays no host code.
     """
+    refuse_buffers(model)
     if event_axis and not is_raw:
         raise ValueError('event-axis sharding requires raw events')
     timers = FakeTimer() if timers is None else timers
@@ -482,14 +501,15 @@ def make_sharded_fused_window_step(model, evaluator, optimizer, weights,
 def make_sharded_eval_step(model, evaluator, weights, groups: MeshGroups,
                            is_raw: bool = True):
     """Loss-only twin of ``make_sharded_train_step``: every rank
-    evaluates its data shard, the loss and terms are averaged over the
-    data group in one all-reduce (equal shards: the mean of shard means
-    is the full-batch mean); ranks of one data shard on the event axis
-    evaluate the same shard."""
+    evaluates its data shard (the model in eval mode), the loss and terms
+    are averaged over the data group in one all-reduce (equal shards: the
+    mean of shard means is the full-batch mean); ranks of one data shard
+    on the event axis evaluate the same shard."""
+    refuse_buffers(model)
     loss_fn = make_loss_fn(model, evaluator, weights, is_raw)
 
     def eval_step(batch):
-        with torch.no_grad():
+        with torch.no_grad(), eval_mode(model):
             loss, terms = loss_fn(batch)
             loss, *rest = _mean_over(groups.data_group, groups.mesh.data,
                                      [loss] + _flat_terms(terms),

@@ -10,10 +10,19 @@ import copy
 from .train import validate, validate_windowed
 
 
+def unsaved_buffers(model):
+    """``{name: buffer}`` of the model's buffers that ``state_dict()``
+    leaves out (non-persistent: E-RAFT's batch-norm running
+    statistics)."""
+    saved = model.state_dict().keys()
+    return {name: b for name, b in model.named_buffers() if name not in saved}
+
+
 class SerializationHook:
     """Checkpoint the model and the optimizer and flush the TensorBoard
     log together, so the metric history stays aligned with the
-    checkpoints across crashes."""
+    checkpoints across crashes.  A model's non-persistent buffers go into
+    the checkpoint under ``buffers``, where it has any."""
 
     def __init__(self, serializer, model, optimizer, logger):
         self.serializer = serializer
@@ -22,11 +31,15 @@ class SerializationHook:
         self.logger = logger
 
     def __call__(self, steps: int, samples: int):
+        extra = {}
+        buffers = unsaved_buffers(self.model)
+        if buffers:
+            extra['buffers'] = buffers
         self.serializer.checkpoint_model(
             self.model.state_dict(),
             self.optimizer.state_dict(),
             global_step=steps,
-            samples_passed=samples)
+            samples_passed=samples, **extra)
         self.logger.flush()
         print(f'Flushed logs for step {steps} ({samples} passed)')
 

@@ -10,9 +10,9 @@ export a weights-only file.
 Storage is ``torch.save`` of one dict a step: ``model`` (the model's
 ``state_dict``), ``optimizer`` (the optimizer's ``state_dict``, the EMA
 included), ``global_step`` and the caller's extras such as
-``samples_passed``.  Every tensor is copied to the host before the write,
-so the file holds the state as it was at the call; it is written to a
-``.tmp`` file and moved into place, and read back with
+``samples_passed`` and ``buffers``.  Every tensor is copied to the host
+before the write, so the file holds the state as it was at the call; it
+is written to a ``.tmp`` file and moved into place, and read back with
 ``weights_only=True``: only tensors, numbers, strings and containers.
 
 ``read_params_file`` also reads the JAX package's msgpack checkpoints and
@@ -259,7 +259,9 @@ class Serializer:
     def load_checkpoint(self, global_step, model=None, optimizer=None):
         """Load a checkpoint; returns ``(global_step, model_state,
         opt_state, extra_state)``.  A ``model`` or ``optimizer`` given
-        takes its state in place, exactly."""
+        takes its state in place, exactly: the model also the buffers
+        that ``state_dict()`` leaves out, where the checkpoint holds
+        them (``buffers``, ``hooks.SerializationHook``)."""
         if (global_step not in self._temporal_checkpoints
                 and global_step not in self._permanent_checkpoints):
             raise ValueError(f'Checkpoint for step {global_step} not found')
@@ -267,8 +269,13 @@ class Serializer:
         step = int(state.pop('global_step'))
         model_state = state.pop('model')
         opt_state = state.pop('optimizer', None)
+        buffers = state.pop('buffers', {})
         if model is not None:
             model.load_state_dict(model_state, strict=True)
+            live = dict(model.named_buffers())
+            with torch.no_grad():
+                for name, value in buffers.items():
+                    live[name].copy_(value)
         if optimizer is not None:
             optimizer.load_state_dict(opt_state)
         return step, model_state, opt_state, state

@@ -21,6 +21,7 @@ step bodies take a ``grad_fn``: ``make_update_step`` one step's,
 ``make_fused_update_step`` a window's, so the sharded steps of
 ``parallel/mesh.py`` reuse both with their reduced gradients.
 """
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, Optional
@@ -330,14 +331,26 @@ def make_fused_update_step(grad_fn, model, optimizer,
     return fused
 
 
+@contextlib.contextmanager
+def eval_mode(model):
+    """``model`` in eval mode (batch norm on its running statistics, which
+    stay as they are), back in its own mode after."""
+    training = model.training
+    model.train(False)
+    try:
+        yield
+    finally:
+        model.train(training)
+
+
 def make_eval_step(model, evaluator, weights,
                    is_raw: bool = True) -> Callable:
-    """Validation step: ``batch -> (loss, terms)`` with no autograd graph.
-    The parameters are the model's own."""
+    """Validation step: ``batch -> (loss, terms)`` with no autograd graph,
+    the model in eval mode.  The parameters are the model's own."""
     loss_fn = make_loss_fn(model, evaluator, weights, is_raw)
 
     def eval_step(batch):
-        with torch.no_grad():
+        with torch.no_grad(), eval_mode(model):
             return loss_fn(batch)
 
     return eval_step
@@ -352,8 +365,9 @@ def make_fused_eval_step(model, evaluator, weights, window: int,
     tail of a partial window, past ``n_valid``.  On a card one replay of
     a graph captured over the K forwards and losses (``WindowGraph``, one
     a window layout, ``fused.graphs``), which reads the model's live
-    parameters; on the CPU the first ``n_valid`` forwards run eagerly and
-    the tail's rows stay 0.
+    parameters and buffers; on the CPU the first ``n_valid`` forwards run
+    eagerly and the tail's rows stay 0.  The model is in eval mode for
+    both, the capture too.
     """
     loss_fn = make_loss_fn(model, evaluator, weights, is_raw)
     scales = len(evaluator.shapes)
@@ -370,12 +384,13 @@ def make_fused_eval_step(model, evaluator, weights, window: int,
         if staged.window != window:
             raise ValueError(f'a window of {staged.window} batches, the step '
                              f'takes {window}')
-        if staged.storage.is_cuda:
-            values = _graph_for(graphs, staged, lambda: WindowGraph(
-                body, staged, None, 1 + 3 * scales, warmup=1))(staged)
-        else:
-            values = torch.zeros((window, 1 + 3 * scales))
-            body(staged.batch, None, values, range(n_valid))
+        with eval_mode(model):
+            if staged.storage.is_cuda:
+                values = _graph_for(graphs, staged, lambda: WindowGraph(
+                    body, staged, None, 1 + 3 * scales, warmup=1))(staged)
+            else:
+                values = torch.zeros((window, 1 + 3 * scales))
+                body(staged.batch, None, values, range(n_valid))
         return split_values(values, scales)
 
     fused.graphs = graphs

@@ -139,6 +139,8 @@ def test_train_cli_ema_finalize(tmp_path, mvsec_layout):
     ['--profiling', 'JAX'],
     ['--mesh', 'data:2'],
     ['--num-processes', '2'],
+    ['--flownet_path', 'ERAFT', '--max-sequence-length', '2',
+     '--prefix-length', '1'],
 ])
 def test_train_cli_accepts_ported_flags(tmp_path, flags):
     args = cli.parse_args(['-m', str(tmp_path)] + BASE + flags)

@@ -7,10 +7,10 @@ kernel-MLP, as tests/training/test_recurrent.py runs them) but for the
 bf16 recipe, whose kernel-MLP runs the Pallas kernel in interpret mode
 as tests/test_torch_recipe.py runs it.
 
-- The loader: ``EVFlowNet``, ``RecurrentFlowNet`` and ``DummyFlowNet``
-  resolve to the port's own modules wherever the path points, and the
-  root plugin directories of those names are never imported; another
-  directory loads as a torch plugin.
+- The loader: ``EVFlowNet``, ``RecurrentFlowNet``, ``DummyFlowNet`` and
+  ``ERAFT`` resolve to the port's own modules wherever the path points,
+  and the root plugin directories of those names are never imported;
+  another directory loads as a torch plugin.
 - RecurrentFlowNet at depth 3, base 4, hidden 4, 32x32, batch 2, L = 2,
   prefix 0 and 1: flows rtol 1e-4 / atol 1e-6, features rtol 1e-4 /
   atol 1e-5, ``flow_ts`` exactly and the parameter gradients rtol 1e-3 /
@@ -93,7 +93,7 @@ SMALL = dict(event_representation_depth=3, base_channels=4,
 # --- the loader ------------------------------------------------------------
 
 @pytest.mark.parametrize('name', ['EVFlowNet', 'RecurrentFlowNet',
-                                  'DummyFlowNet'])
+                                  'DummyFlowNet', 'ERAFT'])
 def test_loader_resolves_the_port_plugins(name):
     want = importlib.import_module(
         f'dvs_of_training_framework_tpu_torch.models.'
