@@ -43,6 +43,16 @@ Phases:
    and the bound; and the device ops of one warp forward and backward
    through K3's corner gather and plain ops (the route before the
    fusion) and through the fused kernels;
+4b. the flow heads' kernel (``flow_head_fwd``, ``flow_head_bwd``) at the
+   four heads' bench shapes (B 8; C 256, 128, 64, 32 at 32^2 .. 256^2), on
+   bf16 and fp32 features: the flow and the three gradients against a
+   float64 evaluation, where the kernel may err by at most twice what the
+   fp32 twin errs (or 4 fp32 ulps of the tensor's scale), and two
+   backward calls bit for bit; on bf16 features, each head's and the
+   four heads' device time beside the twin's (the cast and cuDNN),
+   cuDNN's ``F.conv2d`` on the fp32 copy (deterministic, as the recipe
+   runs it) and the bound (the features and the flows read or written
+   once);
 5. one golden step through the kernels against one through the twins:
    the loss and the raw gradient of every parameter, before the
    optimizer; then the same golden step twice from the same state under
@@ -365,10 +375,12 @@ ACCURACY_LIMIT = 240           # seconds a script may take
 # the kernels that phase 25's trace of a training step must name
 TRACE_KERNELS = ('voxelize_tile_kernel', 'voxelize_bwd_kernel',
                  'kernel_mlp_fwd_kernel', 'kernel_mlp_bwd_kernel',
-                 'warp_fwd_kernel', 'warp_bwd_kernel')
+                 'warp_fwd_kernel', 'warp_bwd_kernel',
+                 'flow_head_conv2d_fwd_kernel', 'flow_head_conv2d_bwd_kernel')
 # each launch counter's kernel in a trace (K1's forward: its tile kernel)
 TRACE_KERNEL_OF = dict(zip(('voxelize_fwd', 'voxelize_bwd', 'kernel_mlp_fwd',
-                            'kernel_mlp_bwd', 'warp_fwd', 'warp_bwd'),
+                            'kernel_mlp_bwd', 'warp_fwd', 'warp_bwd',
+                            'flow_head_fwd', 'flow_head_bwd'),
                            TRACE_KERNELS))
 # phase 29: the device queue's default windows (utils/options.py), the
 # bare steps' optimizer with the production riders and the representation
@@ -675,9 +687,115 @@ def kernel_entry(name, source, replaces, err, times, bound_ms):
           + f'; bound {b_ms:.4f} ms ({b_kind}: {unit}), kernel at '
           f'{100 * b_ms / k_ms:.1f}% of it')
     return {'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE + source,
-            'replaces': 'dvs_of_training_framework_tpu/ops/' + replaces,
+            'replaces': None if replaces is None
+            else 'dvs_of_training_framework_tpu/ops/' + replaces,
             'max_abs_err': err, 'ms': k_ms, 'plain_ms': p_ms,
             'bound_ms': b_ms, 'bound_by': b_kind, 'library_ms': lib_ms}
+
+
+# phase 4b: (channels, plane side) of the four flow heads at the bench
+# shape, and the flow and its three gradients
+FLOW_HEADS = ((256, 32), (128, 64), (64, 128), (32, 256))
+FLOW_HEAD_OUTS = ('flow', 'dx', 'dw', 'db')
+
+
+def flow_head_phase(device, kernels):
+    """Phase 4b: the flow heads' kernel at the four bench shapes against
+    float64 and its twin, and repeated bit for bit, on bf16 and fp32
+    features; on bf16 (the recipe's) timed, with the four heads' sums
+    appended to ``kernels``."""
+    from dvs_of_training_framework_tpu_torch.ops import flow_head_cuda
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    B = 8
+    routes = {'kernel': flow_head_cuda.flow_head,
+              'plain': flow_head_cuda.plain, 'library': F.conv2d}
+    sums = {d: [0.0] * 4 for d in ('fwd', 'bwd')}
+    per_head, worst = {'fwd': [], 'bwd': []}, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = 'bf16' if dtype == torch.bfloat16 else 'fp32'
+        for C, S in FLOW_HEADS:
+            rng = np.random.default_rng(C)
+            x = torch.from_numpy(rng.normal(size=(B, C, S, S)).astype(
+                np.float32)).to(device, dtype)
+            weight = torch.from_numpy((rng.normal(size=(2, C, 1, 1))
+                                       / np.sqrt(C)).astype(np.float32))
+            weight = weight.to(device)
+            bias = torch.tensor([0.37, 0.23], device=device)
+            cot = torch.from_numpy(rng.normal(size=(B, 2, S, S)).astype(
+                np.float32)).to(device)
+            # the library route is cuDNN on the fp32 copy alone: its
+            # input is that copy, made once here
+            inputs = {'kernel': x, 'plain': x, 'library': x.float()}
+            leaves = {name: [t.clone().requires_grad_(True)
+                             for t in (inp, weight, bias)]
+                      for name, inp in inputs.items()}
+            outs = {name: routes[name](*leaves[name]) for name in routes}
+            results = {name: [outs[name].detach(), *torch.autograd.grad(
+                outs[name], leaves[name], cot, retain_graph=True)]
+                for name in ('kernel', 'plain')}
+            again = torch.autograd.grad(outs['kernel'], leaves['kernel'],
+                                        cot, retain_graph=True)
+            x64, w64, c64 = x.double(), weight.double().reshape(2, C), \
+                cot.double()
+            exact = [torch.einsum('kc,bchw->bkhw', w64, x64)
+                     + bias.double()[None, :, None, None],
+                     torch.einsum('kc,bkhw->bchw', w64, c64),
+                     torch.einsum('bkhw,bchw->kc', c64, x64).reshape(
+                         weight.shape), c64.sum((0, 2, 3))]
+            errs = []
+            for i, oname in enumerate(FLOW_HEAD_OUTS):
+                scale = exact[i].abs().max().item() or 1.0
+                err_k, err_p = (max_abs(results[k][i].double(), exact[i])
+                                / scale for k in ('kernel', 'plain'))
+                errs.append(f'{oname} {err_k:.3e} / {err_p:.3e}')
+                if err_k > max(2 * err_p, F64_FLOOR):
+                    raise AssertionError(f'[4b] {tag} C {C}: the kernel errs '
+                                         f'by {err_k:.3e} on {oname}, its '
+                                         f'fp32 twin by {err_p:.3e}')
+                if dtype == torch.bfloat16:
+                    worst = max(worst, max_abs(results['kernel'][i],
+                                               results['plain'][i]))
+            if not all(bits_equal(a, b) for a, b in
+                       zip(results['kernel'][1:], again)):
+                raise AssertionError(f'[4b] {tag} C {C}: two backward calls '
+                                     'differ')
+            print(f'[4b] {tag} C {C} {S}x{S}: against float64, max abs err / '
+                  'max magnitude (kernel / twin): ' + ', '.join(errs)
+                  + '; the backward repeats bit for bit')
+            if dtype == torch.bfloat16:
+                x_bytes = x.numel() * x.element_size()
+                nbytes = {'fwd': x_bytes + 4 * cot.numel(),
+                          'bwd': 2 * x_bytes + 4 * cot.numel()}
+                runs = {'fwd': {name: (lambda name=name: routes[name](
+                            *leaves[name])) for name in routes},
+                        'bwd': {name: (lambda name=name: torch.autograd.grad(
+                            outs[name], leaves[name], cot,
+                            retain_graph=True)) for name in routes}}
+                for key, fns in runs.items():
+                    times = time_pair(fns['kernel'], fns['plain'],
+                                      fns['library'])
+                    b_ms = bound(nbytes=nbytes[key])[0]
+                    for i, v in enumerate((*times, b_ms)):
+                        sums[key][i] += v
+                    per_head[key].append({
+                        'channels': C, 'size': S, 'ms': times[0],
+                        'plain_ms': times[1], 'library_ms': times[2],
+                        'bound_ms': b_ms})
+                    print(f'  flow_head_{key} C {C}: kernel {times[0]:.4f} '
+                          f'ms, plain {times[1]:.4f} ms, cuDNN on the fp32 '
+                          f'copy {times[2]:.4f} ms; bound {b_ms:.4f} ms, '
+                          f'kernel at {100 * b_ms / times[0]:.1f}% of it')
+            del x, inputs, leaves, outs, results, again, exact
+    print('  the four heads, bf16 features:')
+    for key in ('fwd', 'bwd'):
+        k_ms, p_ms, lib_ms, b_ms = sums[key]
+        kernels.append(kernel_entry(
+            f'flow_head_{key}', 'flow_head.cu', None, worst,
+            (k_ms, p_ms, lib_ms), (b_ms, 'bytes', 'bytes')))
+        kernels[-1]['per_head'] = per_head[key]
+    torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
 
 
 def compare_step(label, models, evaluators, batch, loss_rtol, grad_tol,
@@ -1143,7 +1261,8 @@ def loop_phases(out, collated, capacity, device, card, counters, bare_ms):
     expected = {'voxelize_fwd': forwards, 'voxelize_bwd': LOOP_STEPS,
                 'kernel_mlp_fwd': forwards, 'kernel_mlp_bwd': LOOP_STEPS,
                 'corner_values': 0, 'warp_fwd': 4 * forwards,
-                'warp_bwd': 4 * LOOP_STEPS}
+                'warp_bwd': 4 * LOOP_STEPS, 'flow_head_fwd': 4 * forwards,
+                'flow_head_bwd': 4 * LOOP_STEPS}
     print(f'  launches: {counts}')
     if counts != expected:
         raise AssertionError(f'loop: launches {counts}, expected {expected}')
@@ -1378,8 +1497,10 @@ def data_phases(out, capacity, device, card, counters, loop_step_ms):
     if (main_counts['voxelize_bwd'] != MAIN_STEPS
             or main_counts['kernel_mlp_bwd'] != MAIN_STEPS
             or main_counts['warp_bwd'] != 4 * MAIN_STEPS
+            or main_counts['flow_head_bwd'] != 4 * MAIN_STEPS
             or main_counts['kernel_mlp_fwd'] != fwd
             or main_counts['warp_fwd'] != 4 * fwd
+            or main_counts['flow_head_fwd'] != 4 * fwd
             or main_counts['corner_values'] != 0 or fwd <= MAIN_STEPS):
         raise AssertionError(f'main(): launches {main_counts}')
     main_ms = clock.step_ms(WARMUP + 1)
@@ -1431,8 +1552,9 @@ def data_phases(out, capacity, device, card, counters, loop_step_ms):
     print(f'  launches (both runs): {eval_counts}')
     if (eval_counts['voxelize_fwd'] != blocks
             or eval_counts['kernel_mlp_fwd'] != blocks
-            or any(eval_counts[k] for k in eval_counts
-                   if k not in ('voxelize_fwd', 'kernel_mlp_fwd'))):
+            or eval_counts['flow_head_fwd'] != 4 * blocks
+            or any(eval_counts[k] for k in eval_counts if k not in (
+                'voxelize_fwd', 'kernel_mlp_fwd', 'flow_head_fwd'))):
         raise AssertionError(f'evaluation: launches {eval_counts}, '
                              f'expected {blocks} forwards')
     if all(a.mAEE == b.mAEE for a, b in zip(results['live'],
@@ -1803,7 +1925,7 @@ def sequence_phases(out, device, card, counters, bench_collated):
     check_counts('recurrent', counts, {
         'voxelize_fwd': n, 'voxelize_bwd': n, 'kernel_mlp_fwd': n,
         'kernel_mlp_bwd': n, 'corner_values': 0, 'warp_fwd': 4 * n,
-        'warp_bwd': 4 * n})
+        'warp_bwd': 4 * n, 'flow_head_fwd': 4 * n, 'flow_head_bwd': 4 * n})
     launches['recurrent_step'] = counts
     trace_steps('[17] cudnn.deterministic=True', step_fn, state, host[:2],
                 device, step_ms)
@@ -1863,8 +1985,10 @@ def sequence_phases(out, device, card, counters, bench_collated):
             or len(clock.step_starts) != MAIN_STEPS // every
             or counts['voxelize_bwd'] != trained
             or counts['warp_bwd'] != 4 * trained
+            or counts['flow_head_bwd'] != 4 * trained
             or counts['kernel_mlp_fwd'] != fwd
-            or counts['warp_fwd'] != 4 * fwd or fwd <= trained):
+            or counts['warp_fwd'] != 4 * fwd
+            or counts['flow_head_fwd'] != 4 * fwd or fwd <= trained):
         raise AssertionError(f'[18] main(): losses {losses}, checkpoints '
                              f'{steps}, launches {counts}')
     main_ms = clock.window_ms(every)
@@ -1899,8 +2023,9 @@ def sequence_phases(out, device, card, counters, bench_collated):
     if (len(records) != 3 or not np.isfinite(numbers).all()
             or counts['voxelize_fwd'] != blocks
             or counts['kernel_mlp_fwd'] != blocks
-            or any(counts[k] for k in counts
-                   if k not in ('voxelize_fwd', 'kernel_mlp_fwd'))):
+            or counts['flow_head_fwd'] != 4 * blocks
+            or any(counts[k] for k in counts if k not in (
+                'voxelize_fwd', 'kernel_mlp_fwd', 'flow_head_fwd'))):
         raise AssertionError(f'[18] evaluation: {numbers}, launches {counts}')
     card_vs_cpu('[18]', eval_cli, eval_argv,
                 recurrent_flownet.OpticalFlow).staged.model.unlink()
@@ -1966,8 +2091,10 @@ def sequence_phases(out, device, card, counters, bench_collated):
     if list(optimizer.groups) != ['predictor'] or \
             'General/learning rate/1' in scalars:
         raise AssertionError('[19] DummyFlowNet: not one optimizer group')
-    if any(launches['dummy'][k] for k in ('voxelize_fwd', 'kernel_mlp_fwd')):
-        raise AssertionError('[19] DummyFlowNet ran the event kernels')
+    if any(launches['dummy'][k] for k in ('voxelize_fwd', 'kernel_mlp_fwd',
+                                          'flow_head_fwd')):
+        raise AssertionError('[19] DummyFlowNet ran the event kernels or '
+                             'the flow heads')
     print(f'[19] {time.perf_counter() - t_phase:.2f} s')
     return launches, planes_16
 
@@ -2187,7 +2314,8 @@ def dense_phases(out, device, card, counters, raw_main):
     # windows of 4 replayed, and one step before the graph's capture
     forwards, trained = counts['voxelize_fwd'], MAIN_STEPS + 1
     want_steps = {k: 0 for k in counts}
-    want_steps.update(warp_fwd=4 * trained, warp_bwd=4 * trained)
+    want_steps.update(warp_fwd=4 * trained, warp_bwd=4 * trained,
+                      flow_head_fwd=4 * trained, flow_head_bwd=4 * trained)
     if (len(losses) != MAIN_STEPS or len(val_losses) != 5
             or not np.isfinite(losses + val_losses).all()
             or steps != [0, 4, 8, 12] or in_steps != want_steps
@@ -2196,7 +2324,9 @@ def dense_phases(out, device, card, counters, raw_main):
             or counts['voxelize_bwd'] or counts['kernel_mlp_bwd']
             or counts['corner_values']
             or counts['warp_fwd'] != 4 * (trained + forwards)
-            or counts['warp_bwd'] != 4 * trained):
+            or counts['warp_bwd'] != 4 * trained
+            or counts['flow_head_fwd'] != counts['warp_fwd']
+            or counts['flow_head_bwd'] != counts['warp_bwd']):
         raise AssertionError(f'[21] main(): losses {losses}, checkpoints '
                              f'{steps}, launches {counts}, in steps '
                              f'{in_steps}')
@@ -2245,7 +2375,8 @@ def dense_phases(out, device, card, counters, raw_main):
         recipe_loss(), [host[i % len(host)] for i in range(n)], device,
         card, counters, grad_clip_norm=1.0, is_raw=False)
     want = {k: 0 for k in counts}
-    want.update(warp_fwd=4 * n, warp_bwd=4 * n)
+    want.update(warp_fwd=4 * n, warp_bwd=4 * n, flow_head_fwd=4 * n,
+                flow_head_bwd=4 * n)
     check_counts('dense step', counts, want)
     launches['dense_step'] = counts
     trace_steps('[21] cudnn.deterministic=True', step_fn, state, host[:2],
@@ -2296,6 +2427,8 @@ def dense_phases(out, device, card, counters, raw_main):
         losses = read_scalars(path / 'log').get('General/Train loss', [])
         want = {k: 0 for k in counts}
         want.update(warp_fwd=16, warp_bwd=16)
+        if name == 'host_images':
+            want.update(flow_head_fwd=16, flow_head_bwd=16)
         print(f'[22] run() --ev_images {" ".join(flags) or "(EVFlowNet)"} '
               'over the raw set, 4 recipe steps: losses ' + ' '.join(
                   f'{v:.5f}' for v in losses) + f'; compute_event_image '
@@ -2514,8 +2647,10 @@ def check_rank_launches(label, ranks, steps):
         n = r['launches']
         if (n['voxelize_bwd'] != steps or n['kernel_mlp_bwd'] != steps
                 or n['warp_bwd'] != 4 * steps
+                or n['flow_head_bwd'] != 4 * steps
                 or n['kernel_mlp_fwd'] != n['voxelize_fwd']
                 or n['warp_fwd'] != 4 * n['voxelize_fwd']
+                or n['flow_head_fwd'] != 4 * n['voxelize_fwd']
                 or n['voxelize_fwd'] < steps or n['corner_values'] != 0):
             raise AssertionError(f'{label}: rank {r["rank"]} launches {n}')
     return {k: sum(r['launches'][k] for r in ranks)
@@ -2649,7 +2784,8 @@ def mesh_phases(out, collated, capacity, device, card):
         check_counts('[23]', w['launches'], {
             'voxelize_fwd': n, 'voxelize_bwd': n, 'kernel_mlp_fwd': n,
             'kernel_mlp_bwd': n, 'corner_values': 0, 'warp_fwd': 2 * n,
-            'warp_bwd': 2 * n})
+            'warp_bwd': 2 * n, 'flow_head_fwd': 4 * n,
+            'flow_head_bwd': 4 * n})
     launches['sharded_step'] = {k: sum(w['launches'][k] for w in workers)
                                 for k in workers[0]['launches']}
     print(f'  launches of the two workers: {launches["sharded_step"]}')
@@ -2884,9 +3020,12 @@ def visualize_phases(out, capacity, device, card, counters):
     only_forward = ('voxelize_fwd', 'kernel_mlp_fwd')
 
     def forward_counts(label, counts, n):
-        if any(counts[k] != (n if k in only_forward else 0) for k in counts):
+        want = {k: n if k in only_forward else 0 for k in counts}
+        want['flow_head_fwd'] = 4 * n
+        if counts != want:
             raise AssertionError(f'{label}: launches {counts}, expected '
-                                 f'{n} of K1 and K2 forward and no other')
+                                 f'{n} of K1 and K2 forward, {4 * n} of the '
+                                 'flow heads\' forward and no other')
 
     # --- 26. the visualize CLI: EVFlowNet at full width, then sequences ----
     t_phase = time.perf_counter()
@@ -3276,7 +3415,8 @@ def accuracy_phase(out):
                  if c['launches'] is not None]
     if len(evaluated) != 2 or any(
             n['voxelize_fwd'] == 0 or n['kernel_mlp_fwd'] != n['voxelize_fwd']
-            or sum(n.values()) != 2 * n['voxelize_fwd'] for n in evaluated):
+            or n['flow_head_fwd'] != 4 * n['voxelize_fwd']
+            or sum(n.values()) != 6 * n['voxelize_fwd'] for n in evaluated):
         raise AssertionError(f'[28] the evaluation children launched '
                              f'{evaluated}')
 
@@ -4070,7 +4210,8 @@ def skip_phase(out, device, card, counters):
             or meta.counts['voxelize_bwd'] != trained
             or meta.counts['voxelize_fwd'] != trained
             or meta.counts['kernel_mlp_fwd'] != trained
-            or meta.counts['warp_bwd'] != 4 * trained):
+            or meta.counts['warp_bwd'] != 4 * trained
+            or meta.counts['flow_head_bwd'] != 4 * trained):
         raise AssertionError(f'[31] losses {meta.losses}, skips '
                              f'{meta.skips}, launches {meta.counts} and '
                              f'{decoded.counts}')
@@ -4176,6 +4317,7 @@ def eval_pool_phase(out, device, card, counters):
         raise AssertionError(f'[32] scores {numbers}')
     expected = {k: blocks if k in ('voxelize_fwd', 'kernel_mlp_fwd') else 0
                 for k in counters}
+    expected['flow_head_fwd'] = 4 * blocks
     flat = [('in turn', want)] + [
         (name, r) for name, rs in runs.items() if name != 'in turn'
         for r in (rs if isinstance(rs, list) else [rs])]
@@ -4403,14 +4545,16 @@ def cache_phase(out, capacity, device, card, counters):
 def launch_counters():
     """``{kernel: (its wrapper's counter, key)}``."""
     from dvs_of_training_framework_tpu_torch.ops import (
-        kernel_mlp_cuda, voxel_cuda, warp_cuda)
+        flow_head_cuda, kernel_mlp_cuda, voxel_cuda, warp_cuda)
     return {'voxelize_fwd': (voxel_cuda.launches, 'fwd'),
             'voxelize_bwd': (voxel_cuda.launches, 'bwd'),
             'kernel_mlp_fwd': (kernel_mlp_cuda.launches, 'fwd'),
             'kernel_mlp_bwd': (kernel_mlp_cuda.launches, 'bwd'),
             'corner_values': (warp_cuda.launches, 'corners'),
             'warp_fwd': (warp_cuda.launches, 'fwd'),
-            'warp_bwd': (warp_cuda.launches, 'bwd')}
+            'warp_bwd': (warp_cuda.launches, 'bwd'),
+            'flow_head_fwd': (flow_head_cuda.launches, 'fwd'),
+            'flow_head_bwd': (flow_head_cuda.launches, 'bwd')}
 
 
 def cache_alone():
@@ -4780,6 +4924,9 @@ def main():
     del frames, grid, view, iy, ix, got, want
     torch.cuda.synchronize()
 
+    # --- 4b. the flow heads --------------------------------------------
+    flow_head_phase(device, kernels)
+
     # --- 5. and 6. one step of each config: kernel path against twins ----
     shapes = [(H // 2 ** i, W // 2 ** i) for i in range(4)][::-1]
     batch = host[0].to(device)
@@ -4827,7 +4974,8 @@ def main():
             check_counts(config, counts, {
                 'voxelize_fwd': n, 'voxelize_bwd': n, 'kernel_mlp_fwd': n,
                 'kernel_mlp_bwd': n, 'corner_values': 0, 'warp_fwd': warps,
-                'warp_bwd': warps})
+                'warp_bwd': warps, 'flow_head_fwd': 4 * n,
+                'flow_head_bwd': 4 * n})
             launches.setdefault(config, counts)
             times[deterministic].append(step_ms)
         bare_ms[config] = {k: statistics.mean(v) for k, v in times.items()}

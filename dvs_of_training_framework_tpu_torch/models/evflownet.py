@@ -16,8 +16,9 @@ truncated-normal ``lecun_normal`` (variance 1/fan_in), normal(1e-2) for
 ``kernel_out``, normal(1e-3) for the flow heads, zero biases.
 
 On CUDA the quantization layer runs the K2 kernel-MLP and the K1 voxelize
-kernels; ``plain_ops=True`` runs their plain PyTorch twins instead, as the
-reference path that a kernel run is compared with.
+kernels, and the predictor's flow heads the flow-head kernel
+(``ops/flow_head_cuda.py``); ``plain_ops=True`` runs their plain PyTorch
+twins instead, as the reference path that a kernel run is compared with.
 
 ``dtype`` ('float32' or 'bfloat16') is the compute type, flax's ``dtype``:
 the parameters stay float32 (flax's ``param_dtype``) and are cast where
@@ -36,7 +37,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import kernel_mlp_cuda, voxel_cuda
+from ..ops import flow_head_cuda, kernel_mlp_cuda, voxel_cuda
 from ..ops.segment import segment_starts
 from ..utils.visualization import flow2img
 from .optical_flow import BaseOpticalFlow
@@ -214,12 +215,15 @@ class ResBlock(nn.Module):
 class Predictor(nn.Module):
     """Conv encoder-decoder with flow heads at 1/8, 1/4, 1/2 and full
     resolution (NCHW), computing in ``dtype`` but for the float32 flow
-    heads; ``activation`` is 'relu' or 'mish'."""
+    heads; ``activation`` is 'relu' or 'mish'.  Each head is a 1x1 ``Conv``
+    (its parameters) computed by ``flow_head_cuda.flow_head`` on the
+    features in their own type, or by its twin where ``plain_ops``."""
 
     def __init__(self, in_channels, base_channels=64, generator=None,
-                 dtype=torch.float32, activation='relu'):
+                 dtype=torch.float32, activation='relu', plain_ops=False):
         super().__init__()
         self.dtype = dtype
+        self.plain_ops = plain_ops
         self.act = get_activation(activation)
         b = base_channels
         enc = (b, 2 * b, 4 * b, 8 * b)
@@ -246,6 +250,8 @@ class Predictor(nn.Module):
             skips.append(x)
         x = self.res1(self.res0(x))
 
+        head_fn = flow_head_cuda.plain if self.plain_ops \
+            else flow_head_cuda.flow_head
         flows, features = [], []
         flow = None
         for i in range(4):
@@ -258,7 +264,8 @@ class Predictor(nn.Module):
             x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
             x = self.act(getattr(self, f'dec{i}')(x))
             features.append(x)
-            flow = getattr(self, f'flow{i}')(x.float())   # heads in fp32
+            head = getattr(self, f'flow{i}')
+            flow = head_fn(x, head.weight, head.bias)      # heads in fp32
             flows.append(flow)
         return flows, features
 
@@ -327,7 +334,8 @@ class Model(nn.Module):
             dtype=compute)
         self.predictor = Predictor(depth * max_sequence_length,
                                    base_channels, generator, dtype=compute,
-                                   activation=activation)
+                                   activation=activation,
+                                   plain_ops=plain_ops)
         if device is not None:
             self.to(device)
 

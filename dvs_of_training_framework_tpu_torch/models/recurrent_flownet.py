@@ -79,7 +79,8 @@ class Model(nn.Module):
                           dtype=self.dtype)
         self.gru = ConvGRUCell(hidden_channels, generator, dtype=self.dtype)
         self.predictor = Predictor(hidden_channels, base_channels, generator,
-                                   dtype=self.dtype, activation=activation)
+                                   dtype=self.dtype, activation=activation,
+                                   plain_ops=plain_ops)
         if device is not None:
             self.to(device)
 

@@ -1,5 +1,5 @@
 """Tensor ops of the port: the plain ops and the CUDA kernels' wrappers."""
-from . import kernel_mlp_cuda, voxel_cuda, warp_cuda
+from . import flow_head_cuda, kernel_mlp_cuda, voxel_cuda, warp_cuda
 from .charbonnier import charbonnier_loss, charbonnier_value
 from .kernel_mlp_cuda import kernel_mlp
 from .resize import resize_bilinear
@@ -22,13 +22,14 @@ def _counters():
              module.launches, key)
             for prefix, module in (('voxelize', voxel_cuda),
                                    ('kernel_mlp', kernel_mlp_cuda),
-                                   ('warp', warp_cuda))
+                                   ('warp', warp_cuda),
+                                   ('flow_head', flow_head_cuda))
             for key in module.launches]
 
 
 def launch_counts() -> dict:
     """Launches of each CUDA kernel in this process so far, by the names
-    of the kernels' entry points (``voxelize_fwd`` ... ``warp_bwd``)."""
+    of the kernels' entry points (``voxelize_fwd`` ... ``flow_head_bwd``)."""
     return {name: counter[key] for name, counter, key in _counters()}
 
 

@@ -20,7 +20,8 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE / 'csrc'
 BUILD_DIR = PACKAGE.parent / 'build' / 'kernels'
-SOURCES = ('voxelize.cu', 'kernel_mlp.cu', 'warp_corners.cu')
+SOURCES = ('voxelize.cu', 'kernel_mlp.cu', 'warp_corners.cu',
+           'flow_head.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -39,6 +40,9 @@ SIGNATURES = {
     'warp_corners': [_P] * 4 + [_I, _I, _I, _I, _P],
     'warp_fwd': [_P] * 3 + [_I] * 5 + [_LL] * 4 + [_P],
     'warp_bwd': [_P] * 4 + [_I] * 5 + [_LL] * 4 + [_P],
+    'flow_head_blocks': [_LL, _I, _LL, _I],
+    'flow_head_fwd': [_P] * 4 + [_LL, _I, _LL, _I, _P],
+    'flow_head_bwd': [_P] * 6 + [_LL, _I, _LL, _I, _I, _P],
 }
 
 
